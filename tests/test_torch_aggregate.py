@@ -90,10 +90,15 @@ def test_cpu_path_launches_no_kernel():
 
 
 def test_launch_shape_tiles_large_broker_axis():
-    assert aggregate.launch_shape(50_000, 8, 200) == (98, 200)
-    row_blocks, b_tile = aggregate.launch_shape(1_000_000, 8, 8192)
-    assert b_tile * 8 * 4 <= 96 * 1024 and -(-8192 // b_tile) == 3
-    assert row_blocks * 3 <= 264
+    """A broker axis that one block holds takes one tile; a larger one is
+    tiled so that each tile's accumulator fits in shared memory."""
+    plan = aggregate.launch_plan(50_000, 8, 200, 132)
+    assert (plan.tiles, plan.broker_slice) == (1, 200)
+    plan = aggregate.launch_plan(1_000_000, 8, 8192, 132)
+    assert plan.tiles == 2 and plan.tiles * plan.broker_slice >= 8192
+    assert plan.smem_bytes <= aggregate.SMEM_PER_BLOCK
+    plan = aggregate.launch_plan(200_000, 64, 8192, 132)
+    assert plan.tiles > 2 and plan.tiles * plan.broker_slice >= 8192
 
 
 PROPS = dict(num_brokers=20, num_racks=5, num_topics=40, num_replicas=2000,
