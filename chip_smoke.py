@@ -7,8 +7,12 @@ Builds the port's hand-written kernel from the sources in this checkout,
 holds it against its plain PyTorch version at the shapes the main path and
 the north-star cluster give it, drives the offline propose path (the
 ``run_propose`` entry point) at BASELINE config #3 (200 brokers, 50K
-replicas) on the slice's goal stack, counts the kernel launches that run
-made, and checks the result.  Prints one JSON object per phase; the last
+replicas) on the 15-goal default stack, counts the kernel launches that run
+made, and checks the result.  Then it holds one swap tile's selection on
+the card against the CPU, runs every other goal set (kafka-assigner,
+intra-broker on a JBOD variant, preferred-leader election, minimum topic
+leaders), and the north-star cluster (BASELINE config #4: 2,600 brokers, 1M
+replicas) on the default stack.  Prints one JSON object per phase; the last
 line is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, when CUDA is unavailable or the port's package is not beside this
 script, and whenever a check fails.
@@ -36,6 +40,21 @@ TOL = dict(rtol=1e-6, atol=1e-4)
 BASELINE3 = dict(num_brokers=200, num_racks=10, num_topics=1000,
                  num_replicas=50_000, mean_cpu=0.006, mean_disk=90.0,
                  mean_nw_in=90.0, mean_nw_out=90.0, seed=3140)
+# BASELINE config #4 (bench.py:478-481): the north-star cluster.
+NORTH_STAR = dict(num_brokers=2600, num_racks=40, num_topics=2000,
+                  num_replicas=1_000_000, mean_cpu=0.0035, mean_disk=90.0,
+                  mean_nw_in=90.0, mean_nw_out=90.0, seed=3141)
+# BASELINE #3 with 50 topics: its three largest topics then hold ~1K-2K
+# partitions, enough for every broker to lead MIN_TOPIC_LEADERS of each (no
+# topic of BASELINE #3 itself has one partition per broker).
+MIN_LEADERS = dict(BASELINE3, num_topics=50)
+MIN_TOPIC_LEADERS = 3
+# The swap tile check's priors: the default stack's hard and replica-count goals.
+SWAP_PRIORS = 7
+# The kafka-assigner even goal's round budget at BASELINE #3: the JAX
+# package's solve needs 123 rounds there (scripts/jax_reference_quality.py
+# --run kafka_assigner --max-rounds 400) and fails at the default 96.
+KAFKA_ASSIGNER_ROUNDS = 256
 # The small cluster on which the CUDA run is held against the CPU run.
 SMALL = dict(num_brokers=20, num_racks=5, num_topics=50, num_replicas=2000,
              mean_cpu=0.005, mean_disk=2100.0, mean_nw_in=2000.0,
@@ -337,6 +356,165 @@ def propose_once(path, goals):
     return wall, json.loads(out.getvalue())
 
 
+def check_proposals(proposals):
+    """Every proposal moves a partition to distinct brokers, keeps its
+    replica count, and names an old leader among its old replicas."""
+    for p in proposals:
+        check(len(set(p["newReplicas"])) == len(p["newReplicas"]) == len(p["oldReplicas"])
+              and p["oldLeader"] in p["oldReplicas"], f"malformed proposal {p}")
+
+
+def run_goals(aggregate, props, goal_names, device, constraint=None, placement=None):
+    """One GoalOptimizer run of ``goal_names`` on a generated cluster (or on
+    ``placement`` of it): checks that no hard goal of the run is violated
+    after, that the proposals are well formed and that the kernel launched;
+    returns (summary dict, result)."""
+    import torch
+    from cruise_control_tpu_torch.analyzer.constraint import BalancingConstraint
+    from cruise_control_tpu_torch.analyzer.goals.registry import goal_by_name
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.testing import random_cluster as rc
+    st, pl, mt = rc.generate(rc.ClusterProperties(**props), device=device)
+    pl = pl if placement is None else placement
+    optimizer = GoalOptimizer(constraint=constraint or BalancingConstraint(),
+                              goal_names=goal_names)
+    aggregate.LAUNCHES = 0
+    t0 = time.monotonic()
+    res = optimizer.optimizations(st, pl, mt)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = aggregate.LAUNCHES
+    doc = res.to_dict()
+    hard = {g for g in goal_names if goal_by_name(g).is_hard}
+    check(launches > 0, f"{goal_names}: the aggregate kernel launched 0 times")
+    check(not set(res.violated_goals_after) & hard,
+          f"{goal_names}: hard goals violated after: {res.violated_goals_after}")
+    check_proposals([p.to_dict() for p in res.proposals])
+    return dict(
+        replicas=mt.num_replicas, brokers=mt.num_brokers, wall_s=wall,
+        optimizer_s=res.elapsed_s, kernel_launches=launches,
+        goals=[{k: g[k] for k in ("goal", "rounds", "moves", "violatedBrokersBefore",
+                                  "violatedBrokersAfter")} for g in doc["goals"]],
+        violated_goals_before=res.violated_goals_before,
+        violated_goals_after=res.violated_goals_after,
+        balancedness=res.balancedness_score, proposals=len(res.proposals),
+        replica_moves=doc["numInterBrokerReplicaMovements"],
+        intra_broker_moves=doc["numIntraBrokerReplicaMovements"],
+        leader_moves=doc["numLeaderMovements"]), res
+
+
+def to_device(obj, device):
+    """A dataclass of tensors (Placement, Aggregates) on ``device``."""
+    import dataclasses
+    return dataclasses.replace(obj, **{f.name: getattr(obj, f.name).to(device)
+                                       for f in dataclasses.fields(obj)})
+
+
+def swap_tile_check(aggregate, props, device="cuda"):
+    """One NetworkOutboundUsageDistributionGoal swap tile behind the default
+    stack's first SWAP_PRIORS goals (solved first, on ``device``): the
+    selection on ``device`` against the CPU's on the same inputs (jitter
+    off), every kept pair held to the CPU feasibility mask, the hard goals
+    after the swaps, and the swap phase's time per round."""
+    import torch
+    from cruise_control_tpu_torch.analyzer import solver as S
+    from cruise_control_tpu_torch.analyzer.constraint import BalancingConstraint
+    from cruise_control_tpu_torch.analyzer.context import (
+        build_context, compute_aggregates, currently_offline)
+    from cruise_control_tpu_torch.analyzer.goals.registry import DEFAULT_GOALS, goal_by_name
+    from cruise_control_tpu_torch.analyzer.options import OptimizationOptions
+    from cruise_control_tpu_torch.testing import random_cluster as rc
+    names = DEFAULT_GOALS[:SWAP_PRIORS]
+    _, res = run_goals(aggregate, props, names, device)
+    goal = goal_by_name("NetworkOutboundUsageDistributionGoal")
+    priors = [goal_by_name(n) for n in names]
+    solver = S.GoalSolver()
+    sel = {}
+    for dev in (device, "cpu"):
+        st, _, mt = rc.generate(rc.ClusterProperties(**props), device=dev)
+        pl = to_device(res.final_placement, dev)
+        gctx = build_context(st, pl, mt, BalancingConstraint(), OptimizationOptions())
+        if dev == device:
+            agg = compute_aggregates(gctx, pl)
+            c = solver.swap_width(goal, st.num_replicas_padded)
+            tile = S.swap_tile(goal, gctx, pl, agg, 0, c)
+        a = to_device(agg, dev)
+        t = [x.to(dev) for x in tile]
+        keep, r_in, _, _ = S.swap_select(goal, priors, gctx, pl, a, 0, *t, jitter_frac=0.0)
+        sel[dev] = (keep.cpu(), r_in.cpu(), gctx, pl, a, t)
+    keep, r_in = sel["cpu"][:2]
+    kept = int(keep.sum())
+    same = (torch.equal(sel[device][0], keep)
+            and torch.equal(sel[device][1][keep], r_in[keep]))
+    # Every kept pair against the feasibility mask, on the CPU.
+    _, _, gctx, pl, a, t = sel["cpu"]
+    ro, ri = t[1][keep], r_in[keep]
+    bo, bi = pl.broker[ro], pl.broker[ri]
+    feasible = ((bo != bi) & (gctx.state.partition[ro] != gctx.state.partition[ri])
+                & goal.swap_ok(gctx, pl, a, ro, ri)
+                & S._chain_accept_swap(priors)(gctx, pl, a, ro, ri, bo, bi))
+    # The swaps applied on the device: hard goals after, fresh aggregates.
+    _, _, gctx_d, pl_d, a_d, t_d = sel[device]
+    pl2, _, applied = S.swap_body(goal, priors, gctx_d, pl_d, a_d, 0, *t_d, jitter_frac=0.0)
+    agg2 = compute_aggregates(gctx_d, pl2)
+    hard_after = {g.name: int(g.violated_brokers(gctx_d, pl2, agg2).sum())
+                  for g in priors if g.is_hard}
+    stranded = int(currently_offline(gctx_d, pl2).sum())
+    # The whole swap phase (tile selection included, jitter on) per round.
+    phase = S._swap_phase(goal, priors, c, jitter_frac=solver.dst_jitter_frac)
+    ms = cuda_ms(lambda: phase(gctx_d, pl_d, a_d, 1), iters=10, warmup=2)
+    out = dict(replicas=gctx.state.num_replicas_padded, tile=c, kept=kept,
+               applied_on_device=int(applied), same_swaps_as_cpu=same,
+               kept_pairs_feasible_on_cpu=bool(feasible.all()),
+               hard_goals_violated_after=hard_after, stranded_after=stranded,
+               swap_phase_ms_per_round=ms)
+    check(kept > 0, f"the swap tile kept no swap: {out}")
+    check(same, f"the card and the CPU keep different swaps: {out}")
+    check(bool(feasible.all()), f"a kept swap fails the CPU feasibility mask: {out}")
+    check(not any(hard_after.values()) and stranded == 0,
+          f"hard goals violated after the swaps: {out}")
+    return out
+
+
+def other_goal_sets(aggregate, full_placement, device="cuda"):
+    """Every goal outside the default stack, one run each at BASELINE #3
+    scale: the kafka-assigner pair (KAFKA_ASSIGNER_ROUNDS rounds a goal),
+    the intra-broker pair on a four-logdir variant, preferred-leader
+    election on the default stack's result, and MIN_TOPIC_LEADERS leaders a
+    broker of each of the three largest topics of a 50-topic variant.  Some
+    goal of each run must have work to do."""
+    import numpy as np
+    from cruise_control_tpu_torch.analyzer.constraint import BalancingConstraint
+    from cruise_control_tpu_torch.analyzer.goals.registry import (
+        DEFAULT_INTRA_BROKER_GOALS, KAFKA_ASSIGNER_GOALS)
+    from cruise_control_tpu_torch.testing import random_cluster as rc
+    st, _, mt = rc.generate(rc.ClusterProperties(**MIN_LEADERS), device="cpu")
+    valid = st.valid.numpy()
+    parts = np.bincount(st.topic.numpy()[valid][st.pos.numpy()[valid] == 0],
+                        minlength=mt.num_topics)
+    top3 = np.argsort(-parts, kind="stable")[:3]
+    largest = tuple(mt.topics[i] for i in top3)
+    runs = [
+        ("kafka_assigner", BASELINE3, KAFKA_ASSIGNER_GOALS,
+         BalancingConstraint(max_rounds_per_goal=KAFKA_ASSIGNER_ROUNDS), None),
+        ("intra_broker_jbod", dict(BASELINE3, num_disks=4), DEFAULT_INTRA_BROKER_GOALS,
+         None, None),
+        ("preferred_leader", BASELINE3, ["PreferredLeaderElectionGoal"], None,
+         full_placement),
+        ("min_topic_leaders", MIN_LEADERS, ["MinTopicLeadersPerBrokerGoal"],
+         BalancingConstraint(min_leader_topic_names=largest,
+                             min_topic_leaders_per_broker=MIN_TOPIC_LEADERS), None),
+    ]
+    out = {}
+    for name, props, goals, constraint, placement in runs:
+        out[name], res = run_goals(aggregate, props, goals, device, constraint, placement)
+        if name == "min_topic_leaders":
+            out[name]["topic_partitions"] = dict(zip(largest, parts[top3].tolist()))
+        check(any(i.violated_brokers_before > 0 for i in res.goal_infos),
+              f"{name}: no goal of the run had anything to do")
+    return out
+
+
 def load_consistent(state, placement, agg):
     """The kernel-computed broker loads against a float64 numpy recompute
     from the placement (the verifier's LOAD_CONSISTENCY check)."""
@@ -463,9 +641,7 @@ def main():
 
     # ---- the result is right: proposals are well formed, and on a small
     # cluster the CUDA run holds against the CPU run of the same code.
-    for p in runs[-1]["doc"]["proposals"]:
-        check(len(set(p["newReplicas"])) == len(p["newReplicas"]) == len(p["oldReplicas"])
-              and p["oldLeader"] in p["oldReplicas"], f"malformed proposal {p}")
+    check_proposals(runs[-1]["doc"]["proposals"])
     small = {}
     for dev in ("cuda", "cpu"):
         st, pl, mt = rc.generate(rc.ClusterProperties(**SMALL), device=dev)
@@ -497,12 +673,26 @@ def main():
     # ---- where the time goes in one propose run (torch.profiler; its
     # tracing slows the host side).
     st, pl, mt = rc.generate(rc.ClusterProperties(**BASELINE3), device="cuda")
-    wall_ms, busy_ms, pprof = device_profile(lambda: GoalOptimizer().optimizations(st, pl, mt))
+    profiled = []
+    wall_ms, busy_ms, pprof = device_profile(
+        lambda: profiled.append(GoalOptimizer().optimizations(st, pl, mt)))
     top = sorted(pprof.items(), key=lambda kv: -kv[1][0])[:12]
     emit("profile", propose_wall_ms_profiled=wall_ms, propose_device_busy_ms=busy_ms,
          propose_device_idle_share=1.0 - busy_ms / wall_ms,
          propose_device_ops=sum(c for _, c in pprof.values()),
          top_device_ms=[[k[:80], round(ms, 4), c] for k, (ms, c) in top])
+
+    # ---- a swap tile on the card against the CPU, behind the stack's
+    # first seven goals.
+    emit("swap", **swap_tile_check(aggregate, BASELINE3))
+
+    # ---- every goal outside the default stack.
+    for name, summary in other_goal_sets(aggregate, profiled[0].final_placement).items():
+        emit("goals", run=name, **summary)
+
+    # ---- the north-star cluster, once, on the default stack.
+    summary, _ = run_goals(aggregate, NORTH_STAR, DEFAULT_GOALS, "cuda")
+    emit("north_star", **summary)
 
     print(json.dumps({"kernels": [{
         "name": "broker_channel_sums",

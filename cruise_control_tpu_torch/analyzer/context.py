@@ -34,10 +34,17 @@ from cruise_control_tpu_torch.ops.aggregate import broker_channel_sums
 
 def hash01(a: torch.Tensor, b) -> torch.Tensor:
     """Deterministic pseudo-uniform [0,1) from two index/seed tensors
-    (broadcast): the solver's tie-breaking jitter."""
+    (broadcast): the solver's tie-breaking jitter.
+
+    The reference's float32 formula, but for ``sin``, which is taken in
+    float64 and rounded to float32: the correctly rounded sine on every
+    device.  float32 ``sin`` of a large argument rounds differently on the
+    card and on the CPU (16% of one swap tile's draws), and the draws break
+    near-ties between candidates, so the same inputs would keep different
+    moves on the two."""
     b = torch.as_tensor(b, device=a.device)
-    x = torch.sin(a.to(torch.float32) * 12.9898 + b.to(torch.float32) * 78.233)
-    v = x * 43758.5453
+    arg = a.to(torch.float32) * 12.9898 + b.to(torch.float32) * 78.233
+    v = torch.sin(arg.to(torch.float64)).to(torch.float32) * 43758.5453
     return v - torch.floor(v)
 
 
@@ -69,6 +76,10 @@ class GoalContext:
     @property
     def num_partitions(self) -> int:
         return self.partition_replicas.shape[0]
+
+    @property
+    def max_rf(self) -> int:
+        return self.partition_replicas.shape[1]
 
     @property
     def num_hosts(self) -> int:

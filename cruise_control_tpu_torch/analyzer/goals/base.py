@@ -15,7 +15,8 @@ supplies
                                     ClusterModelStatsComparator post-check.
 
 All functions take (gctx, placement, agg) plus broadcast index tensors and
-carry no Python state.  The swap SPI waits for the goals that need it.
+carry no Python state.  The swap SPI (``swap_*``, ``accept_swap``) scores
+C×C pair tiles of replica exchanges for the swap phase.
 """
 
 from __future__ import annotations
@@ -52,6 +53,13 @@ class Goal:
     uses_replica_moves: bool = True
     uses_leadership_moves: bool = False
     has_pull_phase: bool = False
+    has_swap_phase: bool = False
+    # True for goals solved by one direct transform (``direct_apply``), and
+    # for goals that move replicas between a broker's own logdirs
+    # (``disk_candidate_score`` / ``disk_move_ok``): the solver's direct and
+    # intra-disk phases.
+    is_direct: bool = False
+    intra_disk: bool = False
     # True when accept_replica_move depends on the SOURCE broker's state —
     # the solver then limits batches to one outbound move per source.
     src_sensitive_accept: bool = False
@@ -64,6 +72,14 @@ class Goal:
     # then keeps at most one move per (topic, destination) and (topic,
     # source) pair per round.
     needs_topic_group: bool = False
+    # Multi-swap: True when this goal's swap acceptance composes over several
+    # swaps per broker in one round — either the goal is swap-neutral or it
+    # bounds the transferred quantity via ``swap_cumulative_slack``.  False
+    # forces the swap phase back to one swap per broker and host.
+    multi_swap_safe: bool = False
+    # True when multi-swap safety additionally needs at most ONE swap per
+    # (topic, broker) touch per round.
+    swap_topic_group: bool = False
     # Multi-leadership: True when this goal's leadership acceptance composes
     # over several promotions per broker in one round — neutral, or bounded
     # via ``leadership_cumulative_slack`` below.
@@ -181,6 +197,61 @@ class Goal:
         demoted leader's broker.  None = leadership-neutral."""
         return None
 
+    # ----------------------------------------------------------------- swap
+    # The reference's third rebalancing mechanism
+    # (ResourceDistributionGoal.java:543-725): exchange a heavy replica on a
+    # loaded broker with a light one on a less-loaded broker, so only the
+    # load DIFFERENCE moves and replica counts stay.  Batched form: top-k
+    # out-candidates × top-k in-candidates, a C×C pair feasibility matrix,
+    # conflict-free selection.
+
+    def swap_out_score(self, gctx: GoalContext, placement: Placement,
+                       agg: Aggregates, salt) -> torch.Tensor:
+        """f32[R]: -inf = not a swap-out candidate; higher = try first.
+        ``salt`` (round index) reseeds any randomized interleave."""
+        return torch.full((gctx.state.num_replicas_padded,), NEG_INF,
+                          device=gctx.state.device)
+
+    def swap_in_score(self, gctx: GoalContext, placement: Placement,
+                      agg: Aggregates, salt) -> torch.Tensor:
+        """f32[R]: -inf = not a swap-in candidate; higher = try first."""
+        return torch.full((gctx.state.num_replicas_padded,), NEG_INF,
+                          device=gctx.state.device)
+
+    def swap_ok(self, gctx: GoalContext, placement: Placement, agg: Aggregates,
+                r_out, r_in):
+        """Would swapping r_out ↔ r_in satisfy/improve THIS goal (pairwise)."""
+        return ~all_true(r_out, r_in)
+
+    def swap_cost(self, gctx: GoalContext, placement: Placement, agg: Aggregates,
+                  r_out, r_in):
+        """Lower = preferred pair."""
+        return torch.zeros(torch.broadcast_shapes(r_out.shape, r_in.shape),
+                           device=r_out.device)
+
+    def accept_swap(self, gctx: GoalContext, placement: Placement,
+                    agg: Aggregates, r_out, r_in, b_out, b_in):
+        """actionAcceptance for later goals' SWAP actions.  Default: accept
+        iff both directional moves are individually acceptable (each checked
+        against pre-swap aggregates, so vacated headroom is not credited)."""
+        return (self.accept_replica_move(gctx, placement, agg, r_out, b_in)
+                & self.accept_replica_move(gctx, placement, agg, r_in, b_out))
+
+    def swap_cumulative_slack(self, gctx: GoalContext, placement: Placement,
+                              agg: Aggregates, d_load, d_pot, d_lbi, d_lead):
+        """Optional (delta f32[C], upper_slack f32[B], lower_slack f32[B]|None):
+        cumulative bound on what each kept swap transfers b_out → b_in.
+        ``d_load`` is the pairs' role-load delta f32[C,4]; ``d_pot``,
+        ``d_lbi`` and ``d_lead`` the potential-NW-out, leader-bytes-in and
+        leader-count deltas f32[C].  None = swap-neutral."""
+        return None
+
+    def swap_host_cumulative_slack(self, gctx: GoalContext, placement: Placement,
+                                   agg: Aggregates, d_load):
+        """(delta f32[C], upper_slack f32[H]) host-scoped analog (upper bound
+        only).  None = no host-level constraint."""
+        return None
+
     # ------------------------------------------------------ pull (move-in)
 
     def pull_dst_prune_score(self, gctx: GoalContext, placement: Placement,
@@ -212,3 +283,12 @@ class Goal:
 
 def alive_mask(gctx: GoalContext) -> torch.Tensor:
     return gctx.state.alive & gctx.state.broker_valid
+
+
+def avg_alive_util_fraction(gctx: GoalContext, agg: Aggregates, resource: int):
+    """f32 scalar: the alive brokers' load over their capacity, for one
+    resource."""
+    alive = alive_mask(gctx)
+    total = torch.where(alive, agg.broker_load[:, resource], 0.0).sum()
+    cap = torch.where(alive, gctx.state.capacity[:, resource], 0.0).sum()
+    return total / torch.clamp(cap, min=1e-9)

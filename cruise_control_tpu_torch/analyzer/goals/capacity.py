@@ -1,7 +1,8 @@
 """Hard capacity goals.
 
 Reference: ``analyzer/goals/CapacityGoal.java:40-466`` (+ the four resource
-subclasses) and ``ReplicaCapacityGoal.java``.
+subclasses), ``ReplicaCapacityGoal.java`` and
+``IntraBrokerDiskCapacityGoal.java``.
 
 A broker (and, for host-scoped resources, its host) must stay under
 ``capacity_threshold[res] * capacity``: violation = load over limit;
@@ -14,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from cruise_control_tpu_torch.analyzer.context import GoalContext, replica_role_load
-from cruise_control_tpu_torch.analyzer.goals.base import Goal, all_true, alive_mask
+from cruise_control_tpu_torch.analyzer.goals.base import Goal, NEG_INF, all_true, alive_mask
 from cruise_control_tpu_torch.common.resources import IS_HOST_RESOURCE, Resource
 
 
@@ -23,6 +24,7 @@ class CapacityGoal(Goal):
 
     is_hard = True
     multi_accept_safe = True
+    multi_swap_safe = True
     multi_leadership_safe = True
     resource: int = Resource.DISK
 
@@ -107,6 +109,39 @@ class CapacityGoal(Goal):
                 - agg.host_load[:, res]) if IS_HOST_RESOURCE[res] else None
         return dg, dl, limit - agg.broker_load[:, res], None, up_h
 
+    def swap_cumulative_slack(self, gctx, placement, agg, d_load, d_pot, d_lbi, d_lead):
+        res = self.resource
+        limit = gctx.capacity_threshold[res] * gctx.state.capacity[:, res]
+        return d_load[:, res], limit - agg.broker_load[:, res], None
+
+    def swap_host_cumulative_slack(self, gctx, placement, agg, d_load):
+        res = self.resource
+        if not IS_HOST_RESOURCE[res]:
+            return None
+        limit = gctx.capacity_threshold[res] * gctx.host_capacity[:, res]
+        return d_load[:, res], limit - agg.host_load[:, res]
+
+    def accept_swap(self, gctx, placement, agg, r_out, r_in, b_out, b_in):
+        """Exact: only the load DELTA lands on each end (the directional
+        default would double-count and veto swaps near the cap)."""
+        res = self.resource
+        delta = (replica_role_load(gctx, placement, r_out)[..., res]
+                 - replica_role_load(gctx, placement, r_in)[..., res])
+        b_ok = ((agg.broker_load[b_in, res] + delta <= self._limit(gctx, b_in))
+                | (delta <= 0))
+        b_ok = b_ok & ((agg.broker_load[b_out, res] - delta
+                        <= self._limit(gctx, b_out)) | (delta >= 0))
+        if not IS_HOST_RESOURCE[res]:
+            return b_ok
+        h_in = gctx.state.host[b_in]
+        h_out = gctx.state.host[b_out]
+        same = h_in == h_out
+        h_ok_in = ((agg.host_load[h_in, res] + delta <= self._host_limit(gctx, h_in))
+                   | (delta <= 0))
+        h_ok_out = ((agg.host_load[h_out, res] - delta <= self._host_limit(gctx, h_out))
+                    | (delta >= 0))
+        return b_ok & (same | (h_ok_in & h_ok_out))
+
     def stats_metric(self, gctx, placement, agg):
         """Total over-limit load (lower better, 0 == satisfied)."""
         res = self.resource
@@ -145,6 +180,7 @@ class ReplicaCapacityGoal(Goal):
     name = "ReplicaCapacityGoal"
     is_hard = True
     multi_accept_safe = True
+    multi_swap_safe = True          # swaps are replica-count-neutral
     multi_leadership_safe = True    # promotions are replica-count-neutral
 
     def violated_brokers(self, gctx, placement, agg):
@@ -171,9 +207,61 @@ class ReplicaCapacityGoal(Goal):
         return torch.ones(cand_load.shape[0], dtype=torch.float32,
                           device=cand_load.device), slack
 
+    def accept_swap(self, gctx, placement, agg, r_out, r_in, b_out, b_in):
+        """Swaps are count-neutral."""
+        return all_true(r_out, r_in)
+
     def dst_cost(self, gctx, placement, agg, r, dst):
         return agg.replica_counts[dst].to(torch.float32)
 
     def stats_metric(self, gctx, placement, agg):
         over = torch.clamp(agg.replica_counts - gctx.max_replicas_per_broker, min=0)
         return torch.where(alive_mask(gctx), over, 0).sum().to(torch.float32)
+
+
+class IntraBrokerDiskCapacityGoal(Goal):
+    """Per-logdir capacity inside JBOD brokers (IntraBrokerDiskCapacityGoal.java).
+
+    Violation = disk load over ``capacity_threshold[DISK] * disk_capacity``;
+    fix = move replicas to a sibling disk with headroom (the solver's
+    intra-disk phase).
+    """
+
+    name = "IntraBrokerDiskCapacityGoal"
+    is_hard = True
+    uses_replica_moves = False
+    intra_disk = True
+    # Inter-broker swaps land on each side's emptiest logdir; the solver's
+    # JBOD cumulative fill guard bounds multi-swap arrivals per logdir.
+    multi_swap_safe = True
+    multi_leadership_safe = True    # leadership does not move data between disks
+
+    def violated_disks(self, gctx, placement, agg):
+        limit = gctx.capacity_threshold[Resource.DISK] * gctx.state.disk_capacity
+        return (agg.disk_load > limit) & gctx.state.disk_alive
+
+    def violated_brokers(self, gctx, placement, agg):
+        return self.violated_disks(gctx, placement, agg).any(dim=-1)
+
+    def disk_candidate_score(self, gctx, placement, agg):
+        """f32[R]: replicas on over-limit or dead disks, largest first."""
+        state = gctx.state
+        vd = self.violated_disks(gctx, placement, agg)
+        on_bad = vd[placement.broker, placement.disk]
+        dead_disk = ~state.disk_alive[placement.broker, placement.disk]
+        size = state.leader_load[:, Resource.DISK]
+        cand = (on_bad | dead_disk) & state.valid
+        return torch.where(cand, size, NEG_INF)
+
+    def disk_move_ok(self, gctx, placement, agg, r, d):
+        """bool: replica r may move to disk d of its own broker."""
+        b = placement.broker[r]
+        size = gctx.state.leader_load[r, Resource.DISK]
+        limit = gctx.capacity_threshold[Resource.DISK] * gctx.state.disk_capacity[b, d]
+        return (gctx.state.disk_alive[b, d] & (d != placement.disk[r])
+                & (agg.disk_load[b, d] + size <= limit))
+
+    def stats_metric(self, gctx, placement, agg):
+        limit = gctx.capacity_threshold[Resource.DISK] * gctx.state.disk_capacity
+        excess = torch.clamp(agg.disk_load - limit, min=0.0) * gctx.state.disk_alive
+        return excess.sum()

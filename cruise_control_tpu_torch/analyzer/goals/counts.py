@@ -18,6 +18,7 @@ from cruise_control_tpu_torch.analyzer.goals.base import (
     Goal,
     NEG_INF,
     OFFLINE_BONUS,
+    all_true,
     alive_mask,
 )
 
@@ -44,6 +45,7 @@ class ReplicaDistributionGoal(Goal):
     has_pull_phase = True
     src_sensitive_accept = True
     multi_accept_safe = True
+    multi_swap_safe = True          # swaps are replica-count-neutral
     multi_leadership_safe = True    # promotions are replica-count-neutral
 
     def _counts(self, gctx, agg):
@@ -118,6 +120,10 @@ class ReplicaDistributionGoal(Goal):
         return torch.ones(cand_load.shape[0], dtype=torch.float32,
                           device=cand_load.device)
 
+    def accept_swap(self, gctx, placement, agg, r_out, r_in, b_out, b_in):
+        """A swap is count-neutral on both brokers — always acceptable."""
+        return all_true(r_out, r_in)
+
     def pull_dst_mask(self, gctx, placement, agg):
         _, lower = self._bounds(gctx, agg)
         return (self._counts(gctx, agg) < lower) & alive_mask(gctx)
@@ -164,6 +170,13 @@ class LeaderReplicaDistributionGoal(ReplicaDistributionGoal):
         c = self._counts(gctx, agg).to(torch.float32)
         ones = torch.ones(f.shape, dtype=torch.float32, device=f.device)
         return ones, -ones, upper - c, c - lower, None
+
+    def swap_cumulative_slack(self, gctx, placement, agg, d_load, d_pot,
+                              d_lbi, d_lead):
+        """Leader counts shift by is_leader(r_out) - is_leader(r_in)."""
+        upper, lower = self._bounds(gctx, agg)
+        c = self._counts(gctx, agg).to(torch.float32)
+        return d_lead, upper - c, c - lower
 
     def _count_weight(self, cand_load, is_lead_cand):
         # Only leader candidates move leader counts.
@@ -233,6 +246,23 @@ class LeaderReplicaDistributionGoal(ReplicaDistributionGoal):
         c = self._counts(gctx, agg)
         return c[placement.broker[f]] + 1 <= upper
 
+    def accept_swap(self, gctx, placement, agg, r_out, r_in, b_out, b_in):
+        """Leader counts shift only when the swapped replicas' roles differ:
+        b_in nets is_leader(r_out) - is_leader(r_in).  The gaining end is
+        held to the upper bound and the losing end to the lower bound; a
+        move in the improving direction is never vetoed."""
+        upper, lower = self._bounds(gctx, agg)
+        c = self._counts(gctx, agg)
+        d = (placement.is_leader[r_out].to(torch.int32)
+             - placement.is_leader[r_in].to(torch.int32))
+        in_after = c[b_in] + d
+        out_after = c[b_out] - d
+        gain_ok = (in_after <= upper) | (d <= 0)      # b_in gains when d > 0
+        lose_ok = (out_after >= lower) | (d <= 0)     # b_out loses when d > 0
+        gain_ok2 = (out_after <= upper) | (d >= 0)    # b_out gains when d < 0
+        lose_ok2 = (in_after >= lower) | (d >= 0)     # b_in loses when d < 0
+        return gain_ok & lose_ok & gain_ok2 & lose_ok2
+
 
 class TopicReplicaDistributionGoal(Goal):
     """Even per-topic replica counts (TopicReplicaDistributionGoal.java)."""
@@ -242,6 +272,10 @@ class TopicReplicaDistributionGoal(Goal):
     src_sensitive_accept = True
     multi_accept_safe = True
     needs_topic_group = True
+    # One swap per (topic, broker) touch per round keeps every per-topic
+    # count delta within the +/-1 each pairwise accept_swap already checked.
+    multi_swap_safe = True
+    swap_topic_group = True
     multi_leadership_safe = True    # promotions keep per-topic replica counts
 
     def _bounds(self, gctx, agg):
@@ -288,6 +322,19 @@ class TopicReplicaDistributionGoal(Goal):
     def dst_cost(self, gctx, placement, agg, r, dst):
         t = gctx.state.topic[r]
         return agg.topic_counts[t, dst].to(torch.float32)
+
+    def accept_swap(self, gctx, placement, agg, r_out, r_in, b_out, b_in):
+        """Same-topic swaps are neutral; cross-topic swaps move one count of
+        each topic in opposite directions."""
+        upper, lower = self._bounds(gctx, agg)
+        t_out = gctx.state.topic[r_out]
+        t_in = gctx.state.topic[r_in]
+        same = t_out == t_in
+        in_gain_ok = agg.topic_counts[t_out, b_in] + 1 <= upper[t_out]
+        in_lose_ok = agg.topic_counts[t_in, b_in] - 1 >= lower[t_in]
+        out_gain_ok = agg.topic_counts[t_in, b_out] + 1 <= upper[t_in]
+        out_lose_ok = agg.topic_counts[t_out, b_out] - 1 >= lower[t_out]
+        return same | (in_gain_ok & in_lose_ok & out_gain_ok & out_lose_ok)
 
     def stats_metric(self, gctx, placement, agg):
         upper, lower = self._bounds(gctx, agg)

@@ -67,6 +67,7 @@ class RackAwareGoal(Goal):
     name = "RackAwareGoal"
     is_hard = True
     multi_accept_safe = True
+    multi_swap_safe = True         # partition-unique swaps cannot interact rack-wise
     multi_leadership_safe = True   # leadership never changes rack placement
     dst_slack_exempt = True        # acceptance reads sibling placement, not dst aggregates
     # Wide candidate tile; affordable because the destination axis is pruned
@@ -108,6 +109,7 @@ class RackAwareDistributionGoal(Goal):
     name = "RackAwareDistributionGoal"
     is_hard = True
     multi_accept_safe = True
+    multi_swap_safe = True         # partition-unique swaps cannot interact rack-wise
     multi_leadership_safe = True   # leadership never changes rack placement
     dst_slack_exempt = True        # acceptance reads sibling placement, not dst aggregates
     candidate_width_hint = 8192    # same trade as RackAwareGoal

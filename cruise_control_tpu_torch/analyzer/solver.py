@@ -18,6 +18,11 @@ each one batch of tensor work:
  5. apply ALL kept moves with O(C) incremental scatter deltas
     (full aggregate recompute only at resync)                           (O(C))
 
+Besides replica moves (the move and pull phases), a round may promote
+followers (leadership phase), exchange replica pairs between brokers (swap
+phase, a C×C pair tile), move replicas between a broker's own logdirs
+(intra-disk phase), or apply one direct transform (direct phase).
+
 Every predicate in step 2 is evaluated against the round-start state;
 bounding each group's CUMULATIVE consumption by the tightest in-play
 headroom means no subset of kept moves can invalidate another kept move's
@@ -105,6 +110,19 @@ def _chain_accept_leadership(priors: Sequence[Goal]):
     return accept
 
 
+def _chain_accept_swap(priors: Sequence[Goal]):
+    """Both directional moves must be structurally legit, and every prior
+    goal must accept the SWAP (AbstractGoal.java:271-322; goals may override
+    accept_swap with an exact pairwise predicate)."""
+    def accept(gctx, placement, agg, r_out, r_in, b_out, b_in):
+        ok = (base_replica_move_ok(gctx, placement, r_out, b_in)
+              & base_replica_move_ok(gctx, placement, r_in, b_out))
+        for g in priors:
+            ok = ok & g.accept_swap(gctx, placement, agg, r_out, r_in, b_out, b_in)
+        return ok
+    return accept
+
+
 def _pick_dst_disk(gctx: GoalContext, agg: Aggregates, dst):
     """Emptiest alive logdir of dst (disk chosen at move-apply time)."""
     frac = agg.disk_load[dst] / torch.clamp(gctx.state.disk_capacity[dst], min=1e-9)
@@ -122,6 +140,18 @@ def _group_winners(order_key: torch.Tensor, group: torch.Tensor,
     best = best.scatter_reduce(0, group.long(), order_key, "amin",
                                include_self=False)
     return best[group] == order_key
+
+
+def _both_roles_winner(order: torch.Tensor, key_a: torch.Tensor,
+                       key_b: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """bool[C]: the candidate is the best (smallest order) in BOTH of its
+    groups, where a group's members are the candidates holding its key in
+    either role (an action touching two brokers, partitions or hosts)."""
+    keys = torch.cat([key_a, key_b]).long()
+    best = torch.zeros(num_groups, dtype=order.dtype, device=order.device)
+    best = best.scatter_reduce(0, keys, torch.cat([order, order]), "amin",
+                               include_self=False)
+    return (best[key_a.long()] == order) & (best[key_b.long()] == order)
 
 
 def _jittered(cost: torch.Tensor, ok: torch.Tensor, cand: torch.Tensor,
@@ -177,16 +207,28 @@ def _cumulative_group_ok(order: torch.Tensor, group: torch.Tensor,
 
 
 def _multi_accept_constraints(goal: Goal, priors: Sequence[Goal], gctx,
-                              placement, agg, cand_load, is_lead_cand,
+                              placement, agg, cand, cand_load, is_lead_cand,
                               axis: str):
     """(weight[C], slack[B or H]) cumulative constraints for one axis
-    ('dst', 'src' or 'host') from the goal and its priors."""
+    ('dst', 'src' or 'host') from the goal and its priors.  A goal may name
+    its weight by a marker string, which becomes the candidates' potential
+    NW-out or the leader bytes-in that leader candidates carry."""
     fn = f"{axis}_cumulative_slack"
+    state = gctx.state
     out = []
     for g in (goal, *priors):
         got = getattr(g, fn)(gctx, placement, agg, cand_load, is_lead_cand)
-        if got is not None:
-            out.append(got)
+        if got is None:
+            continue
+        weight, slack = got
+        if isinstance(weight, str):
+            if weight == "potential_nw_out":
+                weight = state.leader_load[cand, Resource.NW_OUT]
+            elif weight == "leader_nw_in":
+                weight = is_lead_cand * state.leader_load[cand, Resource.NW_IN]
+            else:
+                raise ValueError(f"unknown weight marker {weight!r}")
+        out.append((weight, slack))
     return out
 
 
@@ -302,7 +344,7 @@ def _replica_phase(goal: Goal, priors: Sequence[Goal], num_candidates: int,
                         & _group_winners(order, topic * b + dst, nseg)
                         & _group_winners(order, topic * b + src, nseg))
             dst_cons = _multi_accept_constraints(
-                goal, priors, gctx, placement, agg, cand_load, is_lead_c, "dst")
+                goal, priors, gctx, placement, agg, cand, cand_load, is_lead_c, "dst")
             if dst_cons:
                 keep = keep & _cumulative_group_ok(
                     order, dst, keep, [(w, s[dst]) for w, s in dst_cons], c)
@@ -323,12 +365,12 @@ def _replica_phase(goal: Goal, priors: Sequence[Goal], num_candidates: int,
             host_cons = [
                 (torch.where(same_host, 0.0, w), s[host])
                 for w, s in _multi_accept_constraints(
-                    goal, priors, gctx, placement, agg, cand_load, is_lead_c, "host")
+                    goal, priors, gctx, placement, agg, cand, cand_load, is_lead_c, "host")
             ]
             if host_cons:
                 keep = keep & _cumulative_group_ok(order, host, keep, host_cons, c)
             src_cons = _multi_accept_constraints(
-                goal, priors, gctx, placement, agg, cand_load, is_lead_c, "src")
+                goal, priors, gctx, placement, agg, cand, cand_load, is_lead_c, "src")
             if src_cons:
                 # Dead/offline sources are exempt: evacuation must proceed.
                 src_dead = ~state.alive[src] | currently_offline(gctx, placement, cand)
@@ -383,14 +425,8 @@ def _leadership_phase(goal: Goal, priors: Sequence[Goal], num_candidates: int):
                 # Promoted follower and demoted leader share the topic: one
                 # touch per (topic, broker) per round.
                 t = state.topic[cand].long()
-                nseg = gctx.num_topics * b
-                key_g = t * b + gain_b
-                key_l = t * b + lose_b
-                best = torch.zeros(nseg, dtype=order.dtype, device=order.device)
-                best = best.scatter_reduce(0, torch.cat([key_g, key_l]),
-                                           torch.cat([order, order]), "amin",
-                                           include_self=False)
-                keep = keep & (best[key_g] == order) & (best[key_l] == order)
+                keep = keep & _both_roles_winner(order, t * b + gain_b, t * b + lose_b,
+                                                 gctx.num_topics * b)
             rows = []
             h_rows = []
             group2 = torch.cat([gain_b, lose_b])
@@ -433,6 +469,248 @@ def _leadership_phase(goal: Goal, priors: Sequence[Goal], num_candidates: int):
     return phase
 
 
+def swap_select(goal: Goal, priors: Sequence[Goal], gctx: GoalContext,
+                placement: Placement, agg: Aggregates, ridx: int,
+                out_top: torch.Tensor, out_c: torch.Tensor,
+                in_top: torch.Tensor, in_c: torch.Tensor,
+                jitter_frac: float = 1.0):
+    """Which swaps one batched SWAP round keeps on a given tile
+    (ResourceDistributionGoal.java:543-725): (keep bool[C], r_in_sel[C],
+    disk_for_out[C], disk_for_in[C]) — row i exchanges ``out_c[i]`` with
+    ``r_in_sel[i]`` where ``keep[i]``, each landing on the other's broker
+    at the given logdir.
+
+    ``out_c``/``in_c`` are the C out- and in-candidates, ``out_top``/
+    ``in_top`` their scores (-inf-like = no candidate).  C×C pair
+    feasibility (both directions structurally legit ∧ every prior accepts
+    the swap ∧ this goal's band maths says it helps) → per-row partner by
+    rank matching on residual imbalance → conflict-free selection.  Each
+    partition and in-partner is used once; brokers and hosts take EITHER at
+    most one kept swap (fallback) OR — when every in-play goal composes over
+    swaps — as many as their cumulative transferred deltas fit."""
+    accept = _chain_accept_swap(priors)
+    in_play = (goal, *priors)
+    multi_swap = all(g.multi_swap_safe for g in in_play)
+    topic_group = any(g.needs_topic_group or g.swap_topic_group for g in in_play)
+    state = gctx.state
+    c = out_c.shape[0]
+    b = state.num_brokers_padded
+
+    ro = out_c[:, None]                      # [C,1]
+    ri = in_c[None, :]                       # [1,C]
+    bo = placement.broker[ro]
+    bi = placement.broker[ri]
+    ok = ((out_top[:, None] > _SCORE_FLOOR) & (in_top[None, :] > _SCORE_FLOOR)
+          & (bo != bi)
+          & (state.partition[ro] != state.partition[ri])
+          & goal.swap_ok(gctx, placement, agg, ro, ri)
+          & accept(gctx, placement, agg, ro, ri, bo, bi))
+    cost_raw = goal.swap_cost(gctx, placement, agg, ro, ri)
+    # Partner jitter spreads rows over distinct in-partners.
+    pos = _arange(c, out_c)[None, :]
+    cost = torch.where(ok, _jittered(cost_raw, ok, out_c, pos, ridx,
+                                     frac=jitter_frac), _INF_COST)
+    # Rank matching: the i-th out-candidate gets the i-th cheapest partner
+    # COLUMN — distinct partners by construction; rows whose assigned pair
+    # is infeasible fall back to their own argmin.
+    proxy = cost.amin(dim=0)                                 # f32[C] per partner
+    assign = torch.argsort(proxy, stable=True)
+    ok_assign = torch.gather(ok, 1, assign[:, None])[:, 0]
+    fallback = torch.argmin(cost, dim=1)
+    sel = torch.where(ok_assign, assign, fallback)
+    feasible = torch.gather(ok, 1, sel[:, None])[:, 0]
+
+    r_in_sel = in_c[sel]
+    b_out_row = placement.broker[out_c]
+    b_in_sel = placement.broker[r_in_sel]
+    order = torch.where(feasible, _arange(c, out_c), c)
+
+    # A kept swap touches 2 brokers, 2 hosts, 2 partitions: the at-most-once
+    # rules run over both roles' keys.  Every in-partner serves one row.
+    keep = (feasible
+            & _both_roles_winner(order, state.partition[out_c],
+                                 state.partition[r_in_sel], gctx.num_partitions)
+            & _group_winners(order, r_in_sel, state.num_replicas_padded))
+
+    disk_for_out = _pick_dst_disk(gctx, agg, b_in_sel)   # r_out lands on b_in
+    disk_for_in = _pick_dst_disk(gctx, agg, b_out_row)   # r_in lands on b_out
+    order2 = torch.cat([order * 2, order * 2 + 1])
+
+    def both_streams_ok(keep, group2, rows):
+        """Kept rows whose two role streams fit every cumulative row."""
+        ok2 = _cumulative_group_ok(order2, group2, torch.cat([keep, keep]),
+                                   rows, 2 * c)
+        return keep & ok2[:c] & ok2[c:]
+
+    if multi_swap:
+        if topic_group:
+            # One swap per (topic, broker) TOUCH per round.
+            t_out = state.topic[out_c].long()
+            t_in = state.topic[r_in_sel].long()
+            nseg = gctx.num_topics * b
+            keep = (keep
+                    & _both_roles_winner(order, t_out * b + b_out_row,
+                                         t_out * b + b_in_sel, nseg)
+                    & _both_roles_winner(order, t_in * b + b_out_row,
+                                         t_in * b + b_in_sel, nseg))
+        # Cumulative per-broker bounds on the transferred deltas; both role
+        # streams share ONE check per broker, so a broker in both streams
+        # does not spend its slack once per role.
+        load_out = replica_role_load(gctx, placement, out_c)
+        load_in = replica_role_load(gctx, placement, r_in_sel)
+        d_load = load_out - load_in                                   # [C,4]
+        lnwout = state.leader_load[:, Resource.NW_OUT]
+        d_pot = lnwout[out_c] - lnwout[r_in_sel]
+        lnwin = state.leader_load[:, Resource.NW_IN]
+        lead_out = placement.is_leader[out_c]
+        lead_in = placement.is_leader[r_in_sel]
+        d_lbi = lead_out * lnwin[out_c] - lead_in * lnwin[r_in_sel]
+        d_lead = lead_out.to(torch.float32) - lead_in.to(torch.float32)
+        b_rows = []
+        b_group2 = torch.cat([b_in_sel, b_out_row])
+        for g in in_play:
+            got = g.swap_cumulative_slack(gctx, placement, agg, d_load, d_pot, d_lbi, d_lead)
+            if got is None:
+                continue
+            delta, up, low = got
+            p_w = torch.clamp(delta, min=0.0)
+            n_w = torch.clamp(-delta, min=0.0)
+            b_rows.append((torch.cat([p_w, n_w]), up[b_group2]))
+            if low is not None:
+                b_rows.append((torch.cat([n_w, p_w]), low[b_group2]))
+        if b_rows:
+            keep = both_streams_ok(keep, b_group2, b_rows)
+        # Host-scoped bounds (upper only; same-host swaps are neutral).
+        h_in = state.host[b_in_sel]
+        h_out = state.host[b_out_row]
+        same_h = h_in == h_out
+        h_rows = []
+        h_group2 = torch.cat([h_in, h_out])
+        for g in in_play:
+            got = g.swap_host_cumulative_slack(gctx, placement, agg, d_load)
+            if got is None:
+                continue
+            delta, up_h = got
+            p_w = torch.where(same_h, 0.0, torch.clamp(delta, min=0.0))
+            n_w = torch.where(same_h, 0.0, torch.clamp(-delta, min=0.0))
+            h_rows.append((torch.cat([p_w, n_w]), up_h[h_group2]))
+        if h_rows:
+            keep = both_streams_ok(keep, h_group2, h_rows)
+        # JBOD fill guard: both arrival streams (r_out→b_in's logdir,
+        # r_in→b_out's logdir) must cumulatively fit their target disks.
+        d_n = state.num_disks_per_broker
+        if d_n > 1:
+            group2 = torch.cat([b_in_sel * d_n + disk_for_out,
+                                b_out_row * d_n + disk_for_in])
+            disk_limit = gctx.capacity_threshold[Resource.DISK] * state.disk_capacity
+            disk_slack = (disk_limit - agg.disk_load).reshape(-1)
+            w2 = torch.cat([load_out[:, Resource.DISK], load_in[:, Resource.DISK]])
+            keep = both_streams_ok(keep, group2, [(w2, disk_slack[group2])])
+    else:
+        keep = (keep
+                & _both_roles_winner(order, b_out_row, b_in_sel, b)
+                & _both_roles_winner(order, state.host[b_out_row],
+                                     state.host[b_in_sel], gctx.num_hosts))
+
+    return keep, r_in_sel, disk_for_out, disk_for_in
+
+
+def swap_body(goal: Goal, priors: Sequence[Goal], gctx: GoalContext,
+              placement: Placement, agg: Aggregates, ridx: int,
+              out_top: torch.Tensor, out_c: torch.Tensor,
+              in_top: torch.Tensor, in_c: torch.Tensor,
+              jitter_frac: float = 1.0):
+    """One batched SWAP round on a given tile: :func:`swap_select`, then
+    the kept swaps applied — (placement, agg, applied)."""
+    keep, r_in_sel, disk_for_out, disk_for_in = swap_select(
+        goal, priors, gctx, placement, agg, ridx, out_top, out_c, in_top, in_c,
+        jitter_frac)
+    b_out_row = placement.broker[out_c]
+    b_in_sel = placement.broker[r_in_sel]
+    # A swap is two conflict-free moves, out-moves first; r_in rows may
+    # repeat across non-kept rows, so both applies are keep-masked.
+    placement, agg = apply_replica_moves_batch(gctx, placement, agg, out_c,
+                                               b_in_sel, disk_for_out, keep=keep)
+    placement, agg = apply_replica_moves_batch(gctx, placement, agg, r_in_sel,
+                                               b_out_row, disk_for_in, keep=keep)
+    return placement, agg, keep.sum()
+
+
+def swap_tile(goal: Goal, gctx: GoalContext, placement: Placement,
+              agg: Aggregates, ridx: int, num_candidates: int):
+    """The swap phase's tile: the goal's top-C out- and in-candidates,
+    salted by the round index — (out_top, out_c, in_top, in_c)."""
+    return (*_top_candidates(goal.swap_out_score(gctx, placement, agg, ridx),
+                             num_candidates),
+            *_top_candidates(goal.swap_in_score(gctx, placement, agg, ridx),
+                             num_candidates))
+
+
+def _swap_phase(goal: Goal, priors: Sequence[Goal], num_candidates: int,
+                jitter_frac: float = 1.0):
+    """The swap phase: :func:`swap_body` on the round's :func:`swap_tile`."""
+    def phase(gctx: GoalContext, placement: Placement, agg: Aggregates, ridx: int):
+        tile = swap_tile(goal, gctx, placement, agg, ridx, num_candidates)
+        return swap_body(goal, priors, gctx, placement, agg, ridx, *tile, jitter_frac)
+
+    return phase
+
+
+def _intra_disk_phase(goal: Goal, num_candidates: int):
+    """Moves between a broker's own logdirs: each candidate goes to its
+    cheapest feasible sibling disk, one move per source and per destination
+    logdir per round."""
+    def phase(gctx: GoalContext, placement: Placement, agg: Aggregates, ridx: int):
+        state = gctx.state
+        d_n = state.num_disks_per_broker
+        c = num_candidates
+        top_score, cand = _top_candidates(
+            goal.disk_candidate_score(gctx, placement, agg), c)
+        is_cand = top_score > _SCORE_FLOOR
+        r2 = cand[:, None]
+        d2 = _arange(d_n, cand)[None, :]
+        ok = goal.disk_move_ok(gctx, placement, agg, r2, d2)
+        b_of = placement.broker[cand]
+        b2 = b_of[:, None]
+        frac = ((agg.disk_load[b2, d2] + state.leader_load[r2, Resource.DISK])
+                / torch.clamp(state.disk_capacity[b2, d2], min=1e-9))
+        best = torch.argmin(torch.where(ok, frac, _INF_COST), dim=1)
+        feasible = ok.any(dim=1) & is_cand
+
+        order = torch.where(feasible, _arange(c, cand), c)
+        src_disk = placement.disk[cand]
+        nseg = state.num_brokers_padded * d_n
+        keep = (feasible
+                & _group_winners(order, b_of * d_n + src_disk, nseg)
+                & _group_winners(order, b_of * d_n + best, nseg))
+
+        new_disk = torch.where(keep, best, src_disk)
+        # Only disk_load changes; the ROLE-based disk size is what the
+        # aggregate holds for the replica.
+        size = torch.where(keep, replica_role_load(gctx, placement, cand)[:, Resource.DISK],
+                           0.0)
+        flat = agg.disk_load.reshape(-1)
+        flat = flat.index_add(0, (b_of * d_n + src_disk).long(), -size)
+        flat = flat.index_add(0, (b_of * d_n + new_disk).long(), size)
+        placement = placement.replace(
+            disk=set_rows(placement.disk, cand, new_disk.to(torch.int32)))
+        return (placement, agg.replace(disk_load=flat.reshape(agg.disk_load.shape)),
+                keep.sum())
+
+    return phase
+
+
+def _direct_phase(goal: Goal):
+    """A goal solved by one transform (``direct_apply``), then a full
+    aggregate recompute."""
+    def phase(gctx: GoalContext, placement: Placement, agg: Aggregates, ridx: int):
+        new_pl = goal.direct_apply(gctx, placement, agg)
+        changed = (new_pl.is_leader != placement.is_leader).sum() // 2
+        return new_pl, compute_aggregates(gctx, new_pl), changed
+
+    return phase
+
+
 class GoalSolver:
     """Runs one goal's convergence loop of batched rounds."""
 
@@ -442,6 +720,8 @@ class GoalSolver:
 
     def __init__(self, max_candidates_per_round: int = 4096,
                  max_rounds_per_goal: int = 96,
+                 # Swap tiles are C'×C' pair matrices.
+                 max_swap_candidates: int = 1024,
                  dst_jitter_frac: float = 1.0,
                  stall_limit: int = 8,
                  # Destination-axis tile for goals declaring dst_prune_score
@@ -450,6 +730,7 @@ class GoalSolver:
                  max_dst_candidates: int = 1024):
         self.max_candidates = max_candidates_per_round
         self.max_rounds = max_rounds_per_goal
+        self.max_swap_candidates = max_swap_candidates
         self.max_dst_candidates = max_dst_candidates
         # Soft-goal churn cutoff: stop a goal's loop after this many
         # consecutive rounds with neither a violation-count drop nor a
@@ -476,16 +757,28 @@ class GoalSolver:
                 hint = min(hint, cap * max(1, cap // self.max_dst_candidates))
         return min(hint, num_replicas_padded)
 
+    def swap_width(self, goal: Goal, num_replicas_padded: int) -> int:
+        """C of the goal's C×C swap tile."""
+        return min(self.max_swap_candidates, self._width(goal, num_replicas_padded))
+
     def _phases(self, goal: Goal, priors: Tuple[Goal, ...], c: int):
         """Phase functions in execution order."""
         phases = []
+        if goal.is_direct:
+            phases.append(_direct_phase(goal))
         if goal.uses_leadership_moves:
             phases.append(_leadership_phase(goal, priors, c))
         if goal.uses_replica_moves:
+            # Priors-aware receiver ranking where the goal offers it (an
+            # ORDER heuristic: acceptance stays exact either way).
+            prune = goal.dst_prune_score
+            if hasattr(goal, "dst_prune_score_vs"):
+                def prune(gctx, pl, ag, _f=goal.dst_prune_score_vs):
+                    return _f(gctx, pl, ag, priors)
             phases.append(_replica_phase(goal, priors, c,
                                          goal.candidate_score, goal.self_ok,
                                          jitter_frac=self.dst_jitter_frac,
-                                         prune_fn=goal.dst_prune_score,
+                                         prune_fn=prune,
                                          max_dst=self.max_dst_candidates))
         if goal.has_pull_phase:
             phases.append(_replica_phase(goal, priors, c,
@@ -494,6 +787,11 @@ class GoalSolver:
                                          jitter_frac=self.dst_jitter_frac,
                                          prune_fn=goal.pull_dst_prune_score,
                                          max_dst=self.max_dst_candidates))
+        if goal.has_swap_phase:
+            phases.append(_swap_phase(goal, priors, min(self.max_swap_candidates, c),
+                                      jitter_frac=self.dst_jitter_frac))
+        if goal.intra_disk:
+            phases.append(_intra_disk_phase(goal, c))
         return phases
 
     def _phases_runner(self, goal: Goal, priors: Tuple[Goal, ...], c: int):

@@ -106,17 +106,61 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         aggregate.broker_channel_sums(ch.t(), br[:8], 4)
 
 
+SMALL = dict(num_brokers=20, num_racks=5, num_topics=50, num_replicas=2000,
+             mean_cpu=0.005, mean_disk=2100.0, mean_nw_in=2000.0, mean_nw_out=2000.0,
+             seed=11)
+
+
 @pytest.mark.cuda
 def test_propose_path_launches_kernel(cuda):
+    """The full 15-goal default stack on the card: the kernel launches and
+    every hard goal is met."""
+    from cruise_control_tpu_torch.analyzer.goals.registry import (
+        DEFAULT_GOALS, DEFAULT_HARD_GOALS)
     from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
     from cruise_control_tpu_torch.testing import random_cluster as rc
 
-    props = rc.ClusterProperties(num_brokers=20, num_racks=5, num_topics=50,
-                                 num_replicas=2000, mean_cpu=0.005, mean_disk=2100.0,
-                                 mean_nw_in=2000.0, mean_nw_out=2000.0, seed=11)
-    state, placement, meta = rc.generate(props, device=cuda)
+    state, placement, meta = rc.generate(rc.ClusterProperties(**SMALL), device=cuda)
     aggregate.LAUNCHES = 0
     res = GoalOptimizer().optimizations(state, placement, meta)
     assert aggregate.LAUNCHES > 0
     assert res.final_placement.broker.is_cuda
     assert res.proposals
+    assert [i.goal_name for i in res.goal_infos] == DEFAULT_GOALS
+    assert not set(res.violated_goals_after) & set(DEFAULT_HARD_GOALS)
+
+
+@pytest.mark.cuda
+def test_swap_body_keeps_the_same_swaps_on_cpu_and_card(cuda):
+    """One NetworkOutboundUsageDistributionGoal swap tile, taken on the
+    card, behind the default stack's first seven goals: the card and the
+    CPU keep the same swaps with the same partners from the same inputs."""
+    import dataclasses
+
+    from cruise_control_tpu_torch.analyzer import solver
+    from cruise_control_tpu_torch.analyzer.constraint import BalancingConstraint
+    from cruise_control_tpu_torch.analyzer.context import build_context, compute_aggregates
+    from cruise_control_tpu_torch.analyzer.goals.registry import DEFAULT_GOALS, goal_by_name
+    from cruise_control_tpu_torch.analyzer.options import OptimizationOptions
+    from cruise_control_tpu_torch.testing import random_cluster as rc
+
+    goal = goal_by_name("NetworkOutboundUsageDistributionGoal")
+    priors = [goal_by_name(n) for n in DEFAULT_GOALS[:7]]
+    kept = {}
+    st, pl, mt = rc.generate(rc.ClusterProperties(**SMALL), device=cuda)
+    gctx = build_context(st, pl, mt, BalancingConstraint(), OptimizationOptions())
+    agg = compute_aggregates(gctx, pl)
+    c = solver.GoalSolver().swap_width(goal, st.num_replicas_padded)
+    tile = solver.swap_tile(goal, gctx, pl, agg, 0, c)
+    for dev in ("cuda", "cpu"):
+        s, p, m = rc.generate(rc.ClusterProperties(**SMALL), device=dev)
+        g = build_context(s, p, m, BalancingConstraint(), OptimizationOptions())
+        a = dataclasses.replace(agg, **{f.name: getattr(agg, f.name).to(dev)
+                                        for f in dataclasses.fields(agg)})
+        keep, r_in, _, _ = solver.swap_select(goal, priors, g, p, a, 0,
+                                              *(t.to(dev) for t in tile), jitter_frac=0.0)
+        kept[dev] = (keep.cpu(), r_in.cpu())
+    assert int(kept["cpu"][0].sum()) > 0
+    assert torch.equal(kept["cuda"][0], kept["cpu"][0])
+    k = kept["cpu"][0]
+    assert torch.equal(kept["cuda"][1][k], kept["cpu"][1][k])

@@ -52,7 +52,8 @@ def test_fresh_interpreter_import_pulls_no_jax():
 def test_unported_goal_is_named():
     from cruise_control_tpu_torch.analyzer.goals.registry import goal_by_name
 
-    with pytest.raises(ValueError, match="CpuUsageDistributionGoal.*not yet ported"):
-        goal_by_name("CpuUsageDistributionGoal")
+    with pytest.raises(ValueError, match="unknown goal: 'com.example.NoSuchGoal'"):
+        goal_by_name("com.example.NoSuchGoal")
+    assert goal_by_name("CpuUsageDistributionGoal").name == "CpuUsageDistributionGoal"
     assert goal_by_name("com.linkedin.kafka.cruisecontrol.analyzer.goals."
                         "RackAwareGoal").name == "RackAwareGoal"

@@ -1,7 +1,7 @@
 """The whole slice: the port's propose path against the JAX package's.
 
-The same random cluster goes through both GoalOptimizers with the slice
-stack.  Placements are not expected to be identical (the jitter hash and the
+The same random cluster goes through both GoalOptimizers with the 15-goal
+default stack.  Placements are not expected to be identical (the jitter hash and the
 order of float sums differ), so the port's final placement is judged by the
 JAX package's own verifier, its violated-goal count must be no higher than
 JAX's, and its proposals must equal the JAX diff of the same two placements.
@@ -16,11 +16,13 @@ import jax.numpy as jnp
 import pytest
 
 from cruise_control_tpu.analyzer import relax as jrelax
+from cruise_control_tpu.analyzer.goals import registry as jregistry
 from cruise_control_tpu.analyzer.optimizer import GoalOptimizer as JOptimizer
 from cruise_control_tpu.analyzer.proposals import diff_proposals as jdiff
 from cruise_control_tpu.model.state import Placement as JPlacement
 from cruise_control_tpu.testing import random_cluster as jrc
 from cruise_control_tpu.testing.verifier import verify_placement
+from cruise_control_tpu_torch.analyzer.goals import registry
 from cruise_control_tpu_torch.analyzer.goals.registry import (
     DEFAULT_GOALS,
     SUPPORTED_GOALS,
@@ -82,9 +84,21 @@ def _propose(path, *extra):
 
 
 def test_slice_stack_is_the_default_hard_and_count_goals():
-    assert set(DEFAULT_GOALS) == HARD | {"ReplicaDistributionGoal",
-                                         "TopicReplicaDistributionGoal",
-                                         "LeaderReplicaDistributionGoal"}
+    """The first slice's stack (the six hard and three count goals) keeps
+    its order inside the full 15-goal default stack, as in the JAX list."""
+    first = HARD | {"ReplicaDistributionGoal", "TopicReplicaDistributionGoal",
+                    "LeaderReplicaDistributionGoal"}
+    assert len(DEFAULT_GOALS) == 15
+    assert ([g for g in DEFAULT_GOALS if g in first]
+            == [g for g in jregistry.DEFAULT_GOALS if g in first])
+    assert set(registry.DEFAULT_HARD_GOALS) == HARD
+
+
+@pytest.mark.parametrize("name", ["DEFAULT_GOALS", "SUPPORTED_GOALS", "DEFAULT_HARD_GOALS",
+                                  "DEFAULT_ANOMALY_DETECTION_GOALS", "KAFKA_ASSIGNER_GOALS",
+                                  "DEFAULT_INTRA_BROKER_GOALS"])
+def test_registry_lists_equal_jax(name):
+    assert getattr(registry, name) == getattr(jregistry, name)
 
 
 def test_port_placement_passes_jax_verifier(solved):
@@ -147,12 +161,26 @@ def test_run_propose_emits_proposal_json(snapshot_path):
     assert summary["numInterBrokerReplicaMovements"] > 0
 
 
+# Hard goals this one-logdir snapshot cannot meet alone, with the failure the
+# JAX package's optimizer raises on it: three brokers' only logdir is over
+# the disk limit, and no intra-broker move can relieve it.
+INFEASIBLE_ALONE = {"IntraBrokerDiskCapacityGoal":
+                    "[IntraBrokerDiskCapacityGoal] Violated 3 brokers remain "
+                    "after 1 rounds / 0 moves."}
+
+
 @pytest.mark.parametrize("goal", SUPPORTED_GOALS)
-def test_run_propose_each_goal_alone(snapshot_path, goal):
+def test_run_propose_each_goal_alone(snapshot_path, goal, capsys):
     """``--goals`` with one goal, by its fully-qualified reference name: the
-    stack is that goal alone, and a hard goal ends satisfied."""
-    doc = _propose(snapshot_path, "--goals",
-                   f"com.linkedin.kafka.cruisecontrol.analyzer.goals.{goal}")
+    stack is that goal alone, and a hard goal ends satisfied (or fails as
+    the JAX package fails where the snapshot makes it infeasible)."""
+    name = f"com.linkedin.kafka.cruisecontrol.analyzer.goals.{goal}"
+    if goal in INFEASIBLE_ALONE:
+        args = parse_args(["--snapshot", snapshot_path, "--device", "cpu", "--goals", name])
+        assert run_propose(args, io.StringIO()) == 2
+        assert json.loads(capsys.readouterr().err) == {"error": INFEASIBLE_ALONE[goal]}
+        return
+    doc = _propose(snapshot_path, "--goals", name)
     summary = doc["summary"]
     assert [g["goal"] for g in summary["goals"]] == [goal]
     if goal_by_name(goal).is_hard:
@@ -166,5 +194,7 @@ def test_run_propose_rejects_other_formats(tmp_path, capsys):
 
 
 def test_run_propose_rejects_unported_goal(snapshot_path):
-    with pytest.raises(ValueError, match="not yet ported"):
-        _propose(snapshot_path, "--goals", "DiskUsageDistributionGoal")
+    """Every goal of the JAX package is ported: a name neither package
+    knows raises ValueError naming it, as the JAX registry does."""
+    with pytest.raises(ValueError, match="unknown goal: 'NoSuchGoal'"):
+        _propose(snapshot_path, "--goals", "NoSuchGoal")

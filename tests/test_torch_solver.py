@@ -6,7 +6,8 @@ outputs; aggregates after an apply use rtol=1e-6, atol=1e-4 (same f32 deltas,
 summed in another order).  One solver round with ``dst_jitter_frac=0.0``
 must keep the same moves as the JAX round: with jitter off the remaining
 jitter term (1e-6 of a hash) only breaks exact cost ties, which this random
-fixture does not rely on.
+fixture does not rely on.  The one-round cases draw no full-scale hash (the
+swap phase does: ``tests/test_torch_swap.py`` feeds both packages one tile).
 """
 
 import jax
@@ -23,6 +24,7 @@ from cruise_control_tpu.analyzer.context import build_context as jbuild
 from cruise_control_tpu.analyzer.context import compute_aggregates as jaggregates
 from cruise_control_tpu.analyzer.goals.registry import goal_by_name as jgoal
 from cruise_control_tpu.analyzer.options import OptimizationOptions as JOptions
+from cruise_control_tpu.model.state import Placement as JPlacement
 from cruise_control_tpu.testing import random_cluster as jrc
 from cruise_control_tpu_torch.analyzer import solver as tsolver
 from cruise_control_tpu_torch.analyzer.constraint import BalancingConstraint
@@ -46,9 +48,16 @@ HARD = ["RackAwareGoal", "ReplicaCapacityGoal", "DiskCapacityGoal",
         "NetworkInboundCapacityGoal", "NetworkOutboundCapacityGoal", "CpuCapacityGoal"]
 
 
-@pytest.fixture(scope="module")
-def pair():
-    js, jp, meta = jrc.generate(jrc.ClusterProperties(**PROPS), 64, 8)
+def _pair(props, move_leaders=False):
+    js, jp, meta = jrc.generate(jrc.ClusterProperties(**props), 64, 8)
+    if move_leaders:
+        # Leadership off the preferred replica of every third partition
+        # (rows of a partition are adjacent, the leader first).
+        lead = np.asarray(jp.is_leader).copy()
+        rows = np.nonzero(lead)[0][::3]
+        lead[rows] = False
+        lead[rows + 1] = True
+        jp = JPlacement(broker=jp.broker, disk=jp.disk, is_leader=jnp.asarray(lead))
     jg = jbuild(js, jp, meta, JConstraint(**LIMITS), JOptions())
     packed = {k: np.asarray(getattr(js, k)) for k in js.__dataclass_fields__}
     packed.update(assignment=np.asarray(jp.broker), disk=np.asarray(jp.disk),
@@ -56,6 +65,19 @@ def pair():
     ts, tp = state_from_packed(packed, device="cpu")
     tg = build_context(ts, tp, meta, BalancingConstraint(**LIMITS), OptimizationOptions())
     return (jg, jp), (tg, tp)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return _pair(PROPS)
+
+
+@pytest.fixture(scope="module")
+def other():
+    """Three logdirs a broker, one of them dead; and leadership off the
+    preferred replica of every third partition."""
+    return {"jbod": _pair(dict(PROPS, num_disks=3, dead_disk_ids=((2, 1),))),
+            "shuffled": _pair(PROPS, move_leaders=True)}
 
 
 def _t(x):
@@ -87,6 +109,45 @@ def test_cumulative_group_ok(seed):
     got = tsolver._cumulative_group_ok(_t(order).long(), _t(group), _t(active),
                                        [(_t(w), _t(s)) for w, s in cons], c)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_both_roles_winner():
+    """The swap phase's at-most-once rule over two keys a candidate, against
+    the JAX body's segment_min over both roles."""
+    rng = np.random.default_rng(6)
+    c, g = 300, 50
+    order = np.where(rng.random(c) < 0.8, np.arange(c), c).astype(np.int32)
+    ka, kb = (rng.integers(0, g, size=c).astype(np.int32) for _ in range(2))
+    keys, order2 = np.concatenate([ka, kb]), np.concatenate([order, order])
+    best = np.asarray(jax.ops.segment_min(jnp.asarray(order2), jnp.asarray(keys),
+                                          num_segments=g))
+    want = (best[ka] == order) & (best[kb] == order)
+    got = tsolver._both_roles_winner(_t(order).long(), _t(ka), _t(kb), g)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name", ["PotentialNwOutGoal", "LeaderBytesInDistributionGoal",
+                                  "NetworkOutboundCapacityGoal"])
+def test_weight_markers(pair, name):
+    """A marker weight becomes the candidates' potential NW-out or leader
+    bytes-in, as the JAX solver substitutes it."""
+    (jg, jp), (tg, tp) = pair
+    rng = np.random.default_rng(8)
+    cand = rng.choice(tg.state.num_replicas_padded - 64, 64, replace=False).astype(np.int32)
+    lead = np.asarray(jp.is_leader)[cand]
+    load = np.asarray(jp.broker)[cand][:, None].repeat(4, 1).astype(np.float32)
+    ja = jaggregates(jg, jp)
+    for axis in ("dst", "src", "host"):
+        want = jsolver._multi_accept_constraints(
+            jgoal(name), (), jg, jp, ja, jnp.asarray(cand), jnp.asarray(load),
+            jnp.asarray(lead), axis)
+        got = tsolver._multi_accept_constraints(
+            goal_by_name(name), (), tg, tp, compute_aggregates(tg, tp), _t(cand).long(),
+            _t(load), _t(lead), axis)
+        assert len(got) == len(want)
+        for (gw, gs), (ww, ws) in zip(got, want):
+            np.testing.assert_allclose(gw.numpy(), np.asarray(ww), **TOL)
+            assert not isinstance(gs, str)
 
 
 def test_stratified_top_dst(pair):
@@ -135,15 +196,19 @@ def test_apply_batches_match(pair):
                                    np.asarray(getattr(jag2, name)), err_msg=name, **TOL)
 
 
-@pytest.mark.parametrize("name,priors", [
-    ("RackAwareGoal", []),
-    ("DiskCapacityGoal", HARD[:2]),
-    ("ReplicaDistributionGoal", HARD),
-    ("TopicReplicaDistributionGoal", HARD + ["ReplicaDistributionGoal"]),
-    ("LeaderReplicaDistributionGoal", HARD + ["ReplicaDistributionGoal"]),
+@pytest.mark.parametrize("name,priors,fixture", [
+    ("RackAwareGoal", [], "pair"),
+    ("DiskCapacityGoal", HARD[:2], "pair"),
+    ("ReplicaDistributionGoal", HARD, "pair"),
+    ("TopicReplicaDistributionGoal", HARD + ["ReplicaDistributionGoal"], "pair"),
+    ("LeaderReplicaDistributionGoal", HARD + ["ReplicaDistributionGoal"], "pair"),
+    ("IntraBrokerDiskCapacityGoal", HARD, "jbod"),
+    ("PreferredLeaderElectionGoal", HARD, "shuffled"),
+    ("KafkaAssignerEvenRackAwareGoal", [], "pair"),
+    ("LeaderBytesInDistributionGoal", HARD + ["LeaderReplicaDistributionGoal"], "pair"),
 ])
-def test_one_round_keeps_same_moves(pair, name, priors):
-    (jg, jp), (tg, tp) = pair
+def test_one_round_keeps_same_moves(pair, other, name, priors, fixture):
+    (jg, jp), (tg, tp) = pair if fixture == "pair" else other[fixture]
     jpri = tuple(jgoal(n) for n in priors)
     jfn = jsolver.GoalSolver(dst_jitter_frac=0.0)._round_fn(
         jgoal(name), jpri, tp.broker.shape[0])
@@ -153,6 +218,7 @@ def test_one_round_keeps_same_moves(pair, name, priors):
     assert int(japplied) > 0
     assert int(tapplied) == int(japplied)
     np.testing.assert_array_equal(tpl.broker.numpy(), np.asarray(jpl.broker))
+    np.testing.assert_array_equal(tpl.disk.numpy(), np.asarray(jpl.disk))
     np.testing.assert_array_equal(tpl.is_leader.numpy(), np.asarray(jpl.is_leader))
     assert int(tviol) == int(jviol)
     jax.clear_caches()
