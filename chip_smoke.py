@@ -12,7 +12,11 @@ made, and checks the result.  Then it holds one swap tile's selection on
 the card against the CPU, runs every other goal set (kafka-assigner,
 intra-broker on a JBOD variant, preferred-leader election, minimum topic
 leaders), and the north-star cluster (BASELINE config #4: 2,600 brokers, 1M
-replicas) on the default stack.  Prints one JSON object per phase; the last
+replicas) on the default stack.  Then the slice of the builder, budgets,
+lanes and relaxation: the DeterministicCluster fixtures (BASELINE config
+#1), the propose from a JSON snapshot, remove- and add-broker what-if lanes
+(BASELINE config #5), budgeted solves and the relaxation path, each phase
+counting the kernel's launches.  Prints one JSON object per phase; the last
 line is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, when CUDA is unavailable or the port's package is not beside this
 script, and whenever a check fails.
@@ -55,6 +59,21 @@ SWAP_PRIORS = 7
 # package's solve needs 123 rounds there (scripts/jax_reference_quality.py
 # --run kafka_assigner --max-rounds 400) and fails at the default 96.
 KAFKA_ASSIGNER_ROUNDS = 256
+# BASELINE config #5 (bench.py:497-553): decommission what-ifs over a healthy
+# 2,600-broker cluster on the six hard goals, at the lanes' candidate width.
+HEALTHY = dict(num_brokers=2600, num_racks=40, num_topics=2000,
+               num_replicas=1_000_000, mean_cpu=0.002, mean_disk=60.0,
+               mean_nw_in=60.0, mean_nw_out=60.0, seed=3142)
+WHATIF_LANES = 16
+DECOMMISSION = 64
+LANE_WIDTH = 512
+# The add-broker batch (tests/test_analyzer.py:417-454) at BASELINE #3
+# scale: its goals, and the candidates provisioned dead (the last four
+# brokers), revived alone, in a pair and all four.
+ADD_GOALS = ["RackAwareGoal", "ReplicaCapacityGoal", "ReplicaDistributionGoal"]
+ADD_CANDIDATES = 4
+# Removal lanes of the relax phase (the full default stack at BASELINE #3).
+RELAX_LANES = 4
 # The small cluster on which the CUDA run is held against the CPU run.
 SMALL = dict(num_brokers=20, num_racks=5, num_topics=50, num_replicas=2000,
              mean_cpu=0.005, mean_disk=2100.0, mean_nw_in=2000.0,
@@ -341,16 +360,22 @@ def random_channels(r, k, b, kind, seed):
     return ch, br
 
 
-def propose_once(path, goals):
-    """One run of the CLI entry point; returns (wall s, parsed JSON)."""
+def sync(device):
+    """Wait for the card (host clocks around device work end here)."""
     import torch
+    if str(device).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def propose_once(path, goals, device="cuda"):
+    """One run of the CLI entry point; returns (wall s, parsed JSON)."""
     from cruise_control_tpu_torch.client.propose import run_propose
     out = io.StringIO()
-    args = SimpleNamespace(snapshot=path, goals=",".join(goals), device="cuda",
+    args = SimpleNamespace(snapshot=path, goals=",".join(goals), device=device,
                            verbose=True)
     t0 = time.monotonic()
     rc = run_propose(args, out)
-    torch.cuda.synchronize()
+    sync(device)
     wall = time.monotonic() - t0
     check(rc == 0, f"run_propose exited {rc} (OptimizationFailureError or bad input)")
     return wall, json.loads(out.getvalue())
@@ -371,7 +396,6 @@ def run_goals(aggregate, props, goal_names, device, constraint=None, placement=N
     returns (summary dict, result)."""
     import torch
     from cruise_control_tpu_torch.analyzer.constraint import BalancingConstraint
-    from cruise_control_tpu_torch.analyzer.goals.registry import goal_by_name
     from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
     from cruise_control_tpu_torch.testing import random_cluster as rc
     st, pl, mt = rc.generate(rc.ClusterProperties(**props), device=device)
@@ -385,7 +409,7 @@ def run_goals(aggregate, props, goal_names, device, constraint=None, placement=N
     wall = time.monotonic() - t0
     launches = aggregate.LAUNCHES
     doc = res.to_dict()
-    hard = {g for g in goal_names if goal_by_name(g).is_hard}
+    hard = hard_names(goal_names)
     check(launches > 0, f"{goal_names}: the aggregate kernel launched 0 times")
     check(not set(res.violated_goals_after) & hard,
           f"{goal_names}: hard goals violated after: {res.violated_goals_after}")
@@ -512,6 +536,308 @@ def other_goal_sets(aggregate, full_placement, device="cuda"):
             out[name]["topic_partitions"] = dict(zip(largest, parts[top3].tolist()))
         check(any(i.violated_brokers_before > 0 for i in res.goal_infos),
               f"{name}: no goal of the run had anything to do")
+    return out
+
+
+def bench1_cluster(det):
+    """BASELINE config #1 as bench.py:442-454 builds it: 6 brokers on 3
+    racks, 100 partitions of RF 2 on one topic."""
+    cm = det.homogeneous_cluster({0: 0, 1: 0, 2: 1, 3: 1, 4: 2, 5: 2})
+    for p in range(100):
+        lead, foll = p % 6, (p + 1 + p % 3) % 6
+        cm.create_replica("T1", p, broker_id=lead, index=0, is_leader=True)
+        cm.create_replica("T1", p, broker_id=foll, index=1, is_leader=False)
+        cm.set_replica_load("T1", p, lead, det.load(0.5, 120.0, 180.0, 220.0))
+        cm.set_replica_load("T1", p, foll, det.load(0.1, 120.0, 0.0, 220.0))
+    return cm
+
+
+def hard_names(goal_names):
+    from cruise_control_tpu_torch.analyzer.goals.registry import goal_by_name
+    return {g for g in goal_names if goal_by_name(g).is_hard}
+
+
+def deterministic_phase(aggregate, device="cuda"):
+    """BASELINE config #1: the DeterministicCluster fixtures that the JAX
+    tests solve with the default stack, and bench.py's 6-broker harness,
+    each built by the port's builder, frozen on ``device`` and solved there
+    and on the CPU."""
+    from cruise_control_tpu_torch.analyzer.goals.registry import DEFAULT_GOALS
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.testing import deterministic as det
+    fixtures = {"unbalanced": (det.unbalanced, {}),
+                "unbalanced_with_a_follower": (det.unbalanced_with_a_follower, {}),
+                "bench_6brokers_200replicas": (lambda: bench1_cluster(det),
+                                               dict(pad_replicas_to=256, pad_brokers_to=8))}
+    hard = hard_names(DEFAULT_GOALS)
+    out = {}
+    for name, (build, pads) in fixtures.items():
+        runs = {}
+        for dev in (device, "cpu"):
+            st, pl, mt = build().freeze(device=dev, **pads)
+            aggregate.LAUNCHES = 0
+            t0 = time.monotonic()
+            res = GoalOptimizer().optimizations(st, pl, mt)
+            sync(dev)
+            runs[dev] = dict(wall_s=time.monotonic() - t0, kernel_launches=aggregate.LAUNCHES,
+                             violated_goals_before=res.violated_goals_before,
+                             violated_goals_after=res.violated_goals_after,
+                             balancedness=res.balancedness_score,
+                             proposals=len(res.proposals))
+            check(not set(res.violated_goals_after) & hard,
+                  f"{name} on {dev}: hard goals violated after: {res.violated_goals_after}")
+            check_proposals([p.to_dict() for p in res.proposals])
+        check(runs[device]["kernel_launches"] > 0, f"{name}: the kernel launched 0 times")
+        out[name] = dict(replicas=mt.num_replicas, brokers=mt.num_brokers,
+                         card=runs[device], cpu=runs["cpu"])
+    return out
+
+
+def json_propose_phase(aggregate, props, device="cuda"):
+    """The offline propose from a JSON snapshot: the generated cluster
+    through builder_from_snapshot and save_json, held on the host to the
+    NPZ snapshot of the same cluster bit for bit, then proposed from the
+    JSON file by the CLI entry point."""
+    from cruise_control_tpu_torch.analyzer.goals.registry import DEFAULT_GOALS
+    from cruise_control_tpu_torch.model.builder import builder_from_snapshot
+    from cruise_control_tpu_torch.model.snapshot import (load_json, load_npz, save_json,
+                                                         save_npz)
+    from cruise_control_tpu_torch.model.state import state_to_numpy
+    from cruise_control_tpu_torch.testing import random_cluster as rc
+    with tempfile.TemporaryDirectory() as tmp:
+        npz, jpath = os.path.join(tmp, "snap.npz"), os.path.join(tmp, "snap.json")
+        save_npz(npz, *rc.generate(rc.ClusterProperties(**props), device="cpu"))
+        st, pl, mt = load_npz(npz, device="cpu")
+        t0 = time.monotonic()
+        save_json(builder_from_snapshot(st, pl, mt), jpath)
+        write_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        packed, _ = load_json(jpath).freeze_packed()
+        read_s = time.monotonic() - t0
+        ref = state_to_numpy(st, pl)
+        same = sorted(packed) == sorted(ref) and all(
+            packed[k].dtype == ref[k].dtype and packed[k].tobytes() == ref[k].tobytes()
+            for k in ref)
+        check(same, "the JSON snapshot freezes to other arrays than the NPZ snapshot")
+        size = os.path.getsize(jpath)
+        aggregate.LAUNCHES = 0
+        wall, doc = propose_once(jpath, DEFAULT_GOALS, device)
+    launches = aggregate.LAUNCHES
+    s = doc["summary"]
+    check(launches > 0, "the JSON propose launched the aggregate kernel 0 times")
+    check(not set(s["violatedGoalsAfter"]) & hard_names(DEFAULT_GOALS),
+          f"JSON propose: hard goals violated after: {s['violatedGoalsAfter']}")
+    check(len(doc["proposals"]) > 0, "JSON propose: no proposals at an unbalanced cluster")
+    check_proposals(doc["proposals"])
+    return dict(replicas=mt.num_replicas, brokers=mt.num_brokers, json_bytes=size,
+                json_write_s=write_s, json_read_and_freeze_s=read_s,
+                packed_equal_to_npz=same, wall_s=wall, elapsed_s=doc["elapsedSeconds"],
+                kernel_launches=launches, violated_goals_after=s["violatedGoalsAfter"],
+                balancedness=s["balancednessScore"], proposals=len(doc["proposals"]))
+
+
+def lane_summary(res, wall, launches):
+    import numpy as np
+    lanes = res.num_scenarios
+    return dict(lanes=lanes, wall_s=wall, wall_per_lane_s=wall / lanes,
+                kernel_launches=launches, kernel_launches_per_lane=launches / lanes,
+                goals=res.goal_names, preempted=res.preempted,
+                rounds=res.rounds.tolist(), stranded_after=res.stranded_after.tolist(),
+                violated_after=res.violated_after.sum(axis=1).tolist(),
+                balancedness=[res.balancedness(s) for s in range(lanes)],
+                succeeded=int(np.sum([res.succeeded(s) for s in range(lanes)])))
+
+
+def run_lanes(aggregate, call, device):
+    """(result, wall s, kernel launches) of one what-if batch."""
+    aggregate.LAUNCHES = 0
+    t0 = time.monotonic()
+    res = call()
+    sync(device)
+    return res, time.monotonic() - t0, aggregate.LAUNCHES
+
+
+def check_removal(res, state, meta, goal_names, what, hard_goals=True):
+    """Every lane evacuated its brokers (nothing stranded, no replica left on
+    them) and, with ``hard_goals``, meets the hard goals among
+    ``goal_names``."""
+    import numpy as np
+    valid = state.valid.cpu().numpy()
+    hard = [i for i, g in enumerate(res.goal_names) if g in hard_names(goal_names)]
+    for s, ids in enumerate(res.scenario_sets):
+        rows = [meta.broker_index[b] for b in ids]
+        brokers = res.placement_for(s).broker.cpu().numpy()[valid]
+        check(int(res.stranded_after[s]) == 0, f"{what}, lane {s}: stranded "
+              f"{int(res.stranded_after[s])}")
+        check(not np.isin(brokers, rows).any(), f"{what}, lane {s}: {ids} not evacuated")
+        check(not hard_goals or int(res.violated_after[s, hard].sum()) == 0,
+              f"{what}, lane {s}: hard goals violated {res.violated_after[s].tolist()}")
+
+
+def whatif_phase(aggregate, healthy, lanes, decommission, add_props, device="cuda"):
+    """BASELINE config #5, yielding (run, summary) as each batch ends and
+    checking it after: ``lanes`` single-broker removal lanes and one
+    scenario removing ``decommission`` brokers at once, on the six hard
+    goals over the healthy cluster — cold from the generated placement, as
+    bench.py runs them, and warm from the hard goals' solve of it (lanes
+    then only evacuate); then one add-broker batch at ``add_props`` scale,
+    its candidates provisioned dead and emptied.  The generated cluster is
+    not rack-aware, so a cold lane repairs the whole rack layout at the
+    lanes' width as well: only the warm lanes are held to the hard goals."""
+    import dataclasses
+    from cruise_control_tpu_torch.analyzer.goals.registry import DEFAULT_HARD_GOALS
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.testing import random_cluster as rc
+    st, pl, mt = rc.generate(rc.ClusterProperties(**healthy), device=device)
+    opt = GoalOptimizer(goal_names=DEFAULT_HARD_GOALS)
+    aggregate.LAUNCHES = 0
+    t0 = time.monotonic()
+    solved = opt.optimizations(st, pl, mt)
+    sync(device)
+    yield "hard_goal_solve", dict(
+        replicas=mt.num_replicas, brokers=mt.num_brokers, wall_s=time.monotonic() - t0,
+        kernel_launches=aggregate.LAUNCHES, rounds=[i.rounds for i in solved.goal_infos],
+        violated_goals_before=solved.violated_goals_before,
+        violated_goals_after=solved.violated_goals_after)
+    check(not solved.violated_goals_after, f"hard-goal solve: {solved.violated_goals_after}")
+    for start, warm in (("cold", None), ("warm", solved.final_placement)):
+        for name, sets in (("single_broker_lanes", [[b] for b in mt.broker_ids[:lanes]]),
+                           ("decommission", [mt.broker_ids[:decommission]])):
+            res, wall, launches = run_lanes(aggregate, lambda: opt.batch_remove_scenarios(
+                st, pl, mt, sets, num_candidates=LANE_WIDTH, warm_start=warm), device)
+            yield f"{name}_{start}", dict(replicas=mt.num_replicas, brokers=mt.num_brokers,
+                                          brokers_removed=len(sets[0]),
+                                          **lane_summary(res, wall, launches))
+            check(launches > 0, f"{name} {start}: the kernel launched 0 times")
+            check_removal(res, st, mt, DEFAULT_HARD_GOALS, f"{name} {start}",
+                          hard_goals=warm is not None)
+            del res
+    del st, pl, solved
+    st, pl, mt = rc.generate(rc.ClusterProperties(**add_props), device=device)
+    cands = mt.broker_ids[-ADD_CANDIDATES:]
+    opt = GoalOptimizer(goal_names=ADD_GOALS)
+    base = opt.batch_remove_scenarios(st, pl, mt, [cands], num_candidates=LANE_WIDTH)
+    check_removal(base, st, mt, ADD_GOALS, "add base")
+    alive = st.alive.clone()
+    alive[[mt.broker_index[b] for b in cands]] = False
+    dead = dataclasses.replace(st, alive=alive)
+    sets = [[cands[0]], [cands[1]], cands[2:], cands]
+    res, wall, launches = run_lanes(aggregate, lambda: opt.batch_add_scenarios(
+        dead, base.placement_for(0), mt, sets, num_candidates=LANE_WIDTH), device)
+    valid = st.valid.cpu().numpy()
+    received = [[int((res.placement_for(s).broker.cpu().numpy()[valid]
+                      == mt.broker_index[b]).sum()) for b in cands] for s in range(len(sets))]
+    yield "add_brokers", dict(replicas=mt.num_replicas, brokers=mt.num_brokers,
+                              candidates=cands, received=received,
+                              **lane_summary(res, wall, launches))
+    check(launches > 0, "add_brokers: the kernel launched 0 times")
+    for s, ids in enumerate(sets):
+        for b, got in zip(cands, received[s]):
+            check(got > 0 if b in ids else got == 0,
+                  f"add_brokers, lane {s}: candidate {b} {'revived' if b in ids else 'dead'} "
+                  f"holds {got} replicas")
+
+
+def anytime_phase(aggregate, props, device="cuda"):
+    """Budgeted solves of the default stack: cancelled before the start, a
+    deadline at a third of the unbudgeted wall measured here, and one at
+    ten times it."""
+    import torch
+    from cruise_control_tpu_torch.analyzer.budget import SolveBudget
+    from cruise_control_tpu_torch.analyzer.goals.registry import DEFAULT_GOALS
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.testing import random_cluster as rc
+    st, pl, mt = rc.generate(rc.ClusterProperties(**props), device=device)
+    opt = GoalOptimizer()
+    hard = hard_names(DEFAULT_GOALS)
+    t0 = time.monotonic()
+    opt.optimizations(st, pl, mt)
+    sync(device)
+    wall = time.monotonic() - t0
+    out = dict(unbudgeted_wall_s=wall)
+    cancelled = SolveBudget()
+    cancelled.cancel("user")
+    res = opt.optimizations(st, pl, mt, budget=cancelled)
+    check(res.partial and not res.proposals and torch.equal(res.final_placement.broker, pl.broker)
+          and all(i.preempted and i.rounds == 0 for i in res.goal_infos),
+          "a cancel before the start did not return the input placement")
+    out["cancel_before_start"] = dict(partial=res.partial, preempt_reason=res.preempt_reason,
+                                      proposals=len(res.proposals))
+    for name, scale in (("third_of_wall", 1 / 3), ("ten_times_wall", 10.0)):
+        deadline_ms = wall * 1000.0 * scale
+        aggregate.LAUNCHES = 0
+        t0 = time.monotonic()
+        res = opt.optimizations(st, pl, mt, budget=SolveBudget(deadline_ms=deadline_ms))
+        sync(device)
+        took_ms = (time.monotonic() - t0) * 1000.0
+        launches = aggregate.LAUNCHES
+        ran = [i.goal_name for i in res.goal_infos if i.rounds > 0 or not i.preempted]
+        stopped = [i for i in res.goal_infos if i.preempted]
+        check(launches > 0, f"anytime {name}: the kernel launched 0 times")
+        for i in res.goal_infos:
+            check(i.goal_name not in hard or i.preempted or i.violated_brokers_after == 0,
+                  f"anytime {name}: completed hard goal {i.goal_name} violated")
+        check_proposals([p.to_dict() for p in res.proposals])
+        if scale < 1:
+            check(res.partial and stopped, f"anytime {name}: not partial ({took_ms:.1f} ms "
+                  f"against a {deadline_ms:.1f} ms deadline)")
+        else:
+            check(not res.partial, f"anytime {name}: partial at ten times the wall")
+        out[name] = dict(deadline_ms=deadline_ms, wall_ms=took_ms,
+                         overshoot_ms=took_ms - deadline_ms, partial=res.partial,
+                         preempt_reason=res.preempt_reason, goals_run=ran,
+                         preempted_goals=[i.goal_name for i in stopped],
+                         preempted_mid_goal=[i.goal_name for i in stopped if i.rounds > 0],
+                         kernel_launches=launches, proposals=len(res.proposals),
+                         violated_goals_after=res.violated_goals_after,
+                         balancedness=res.balancedness_score)
+    return out
+
+
+def relax_phase(aggregate, props, lanes, device="cuda"):
+    """The default stack with the relaxation path on, beside the greedy
+    solve of the same cluster, then ``lanes`` removal lanes each way."""
+    from cruise_control_tpu_torch.analyzer.goals.registry import DEFAULT_GOALS
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.analyzer.relax import RelaxationConfig
+    from cruise_control_tpu_torch.testing import random_cluster as rc
+    st, pl, mt = rc.generate(rc.ClusterProperties(**props), device=device)
+    hard = hard_names(DEFAULT_GOALS)
+    out = {}
+    for name, config in (("greedy", None), ("relax", RelaxationConfig())):
+        opt = GoalOptimizer(relaxation=config)
+        aggregate.LAUNCHES = 0
+        t0 = time.monotonic()
+        res = opt.optimizations(st, pl, mt)
+        sync(device)
+        wall = time.monotonic() - t0
+        launches = aggregate.LAUNCHES
+        check(launches > 0, f"{name}: the kernel launched 0 times")
+        check(not set(res.violated_goals_after) & hard,
+              f"{name}: hard goals violated after: {res.violated_goals_after}")
+        check_proposals([p.to_dict() for p in res.proposals])
+        relaxed = [i for i in res.goal_infos if i.relaxed]
+        for i in relaxed:
+            check(i.metric_after <= i.metric_before * (1 + 1e-5) + 1e-9,
+                  f"relaxed {i.goal_name} worsened: {i.metric_before} -> {i.metric_after}")
+        check(config is None or relaxed, "no goal took the relaxation path")
+        doc = res.to_dict()
+        out[name] = dict(wall_s=wall, kernel_launches=launches,
+                         violated_goals_after=res.violated_goals_after,
+                         balancedness=res.balancedness_score, proposals=len(res.proposals),
+                         replica_moves=doc["numInterBrokerReplicaMovements"],
+                         leader_moves=doc["numLeaderMovements"],
+                         relax_attempts=len(relaxed),
+                         relax_fallbacks=sum(i.relax_fallback for i in relaxed),
+                         fractional_moves=sum(i.relax_moves for i in relaxed),
+                         relax_ms=sum(i.relax_ms for i in relaxed),
+                         rounds=[i.rounds for i in res.goal_infos])
+        sets = [[b] for b in mt.broker_ids[:lanes]]
+        lres, lwall, llaunches = run_lanes(aggregate, lambda: opt.batch_remove_scenarios(
+            st, pl, mt, sets, num_candidates=LANE_WIDTH), device)
+        check(llaunches > 0, f"{name} lanes: the kernel launched 0 times")
+        check_removal(lres, st, mt, DEFAULT_GOALS, f"{name} lanes")
+        out[f"{name}_lanes"] = lane_summary(lres, lwall, llaunches)
     return out
 
 
@@ -693,6 +1019,21 @@ def main():
     # ---- the north-star cluster, once, on the default stack.
     summary, _ = run_goals(aggregate, NORTH_STAR, DEFAULT_GOALS, "cuda")
     emit("north_star", **summary)
+
+    # ---- BASELINE #1: the DeterministicCluster fixtures on the builder.
+    emit("deterministic", **deterministic_phase(aggregate))
+
+    # ---- the offline propose from a JSON snapshot at BASELINE #3.
+    emit("json_propose", **json_propose_phase(aggregate, BASELINE3))
+
+    # ---- BASELINE #5: remove-broker what-ifs, then an add-broker batch.
+    for name, summary in whatif_phase(aggregate, HEALTHY, WHATIF_LANES, DECOMMISSION,
+                                      BASELINE3):
+        emit("whatif", run=name, **summary)
+
+    # ---- budgeted (anytime) solves, and the relaxation path.
+    emit("anytime", **anytime_phase(aggregate, BASELINE3))
+    emit("relax", **relax_phase(aggregate, BASELINE3, RELAX_LANES))
 
     print(json.dumps({"kernels": [{
         "name": "broker_channel_sums",

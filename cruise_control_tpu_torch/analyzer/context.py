@@ -201,6 +201,23 @@ def build_context(
     )
 
 
+def scenario_context(gctx: GoalContext, alive: torch.Tensor,
+                     excluded_for_replica_move: torch.Tensor,
+                     excluded_for_leadership: torch.Tensor) -> GoalContext:
+    """The context of one what-if lane: the base context with the lane's
+    broker liveness and exclusion masks, and each host's capacity summed
+    anew over the lane's alive brokers (the JAX package builds the same
+    context inside ``_batch_solve_fn`` and ``_relax_batch_fn``)."""
+    state = dataclasses.replace(gctx.state, alive=alive)
+    ok = alive & state.broker_valid
+    host_cap = segment_sum(torch.where(ok[:, None], state.capacity, 0.0),
+                           state.host, gctx.num_hosts)
+    return dataclasses.replace(
+        gctx, state=state, host_capacity=host_cap,
+        excluded_for_replica_move=excluded_for_replica_move,
+        excluded_for_leadership=excluded_for_leadership)
+
+
 # --------------------------------------------------------------------- loads
 
 

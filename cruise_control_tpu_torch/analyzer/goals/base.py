@@ -93,6 +93,29 @@ class Goal:
     # Optional candidate-tile width for this goal's move phases (see
     # GoalSolver._width).  None = solver default.
     candidate_width_hint: Optional[int] = None
+    # Convex-relaxation path (analyzer/relax.py): True when this goal's
+    # objective lowers to a single scalar channel per broker — a per-replica
+    # weight plus a per-broker target — so the fractional mass solve + wave
+    # rounding can warm-start the greedy loop.  Eligible goals implement
+    # ``relax_weights``/``relax_channel`` below.  False (the default) means
+    # the goal always takes the greedy path, bit for bit.
+    relax_eligible: bool = False
+
+    # ----------------------------------------------------- convex relaxation
+
+    def relax_weights(self, gctx: GoalContext, placement: Placement) -> torch.Tensor:
+        """f32[R]: each replica's mass in this goal's relaxation channel
+        (resource load, 1.0 for counts, is_leader for leader counts).  Only
+        called for ``relax_eligible`` goals."""
+        raise NotImplementedError(f"{self.name} is not relax-eligible")
+
+    def relax_channel(self, gctx: GoalContext, agg: Aggregates):
+        """(load f32[B], target f32[B], scale f32[B]): the per-broker channel
+        the fractional solve balances — current channel load, the band
+        center each broker should sit at, and the normalization the squared
+        residual divides by (capacity for resource goals, 1.0 for counts).
+        Only called for ``relax_eligible`` goals."""
+        raise NotImplementedError(f"{self.name} is not relax-eligible")
 
     # ---------------------------------------------------------------- rounds
 

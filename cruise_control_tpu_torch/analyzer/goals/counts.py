@@ -47,6 +47,7 @@ class ReplicaDistributionGoal(Goal):
     multi_accept_safe = True
     multi_swap_safe = True          # swaps are replica-count-neutral
     multi_leadership_safe = True    # promotions are replica-count-neutral
+    relax_eligible = True
 
     def _counts(self, gctx, agg):
         return agg.replica_counts
@@ -96,6 +97,17 @@ class ReplicaDistributionGoal(Goal):
         src_ok = (c[src] - 1 >= lower) | ~gctx.state.alive[src]
         offline = currently_offline(gctx, placement, r)
         return dst_ok & (src_ok | offline)
+
+    def relax_weights(self, gctx, placement):
+        return gctx.state.valid.to(torch.float32)
+
+    def relax_channel(self, gctx, agg):
+        alive = alive_mask(gctx)
+        c = self._counts(gctx, agg).to(torch.float32)
+        n = torch.clamp(alive.sum(), min=1)
+        avg = torch.where(alive, c, 0.0).sum() / n
+        ones = torch.ones_like(c)
+        return c, avg * ones, ones
 
     def dst_cost(self, gctx, placement, agg, r, dst):
         return self._counts(gctx, agg)[dst].to(torch.float32)
@@ -164,6 +176,10 @@ class LeaderReplicaDistributionGoal(ReplicaDistributionGoal):
     # Count-band headroom keeps rounds narrower than the default tile, but
     # the under-fill pull needs reach.
     candidate_width_hint = 2048
+
+    def relax_weights(self, gctx, placement):
+        # Only leader replicas carry mass in the leader-count channel.
+        return (gctx.state.valid & placement.is_leader).to(torch.float32)
 
     def leadership_cumulative_slack(self, gctx, placement, agg, f, old):
         upper, lower = self._bounds(gctx, agg)

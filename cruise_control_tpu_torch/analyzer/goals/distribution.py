@@ -56,6 +56,10 @@ class ResourceDistributionGoal(Goal):
     # Band headroom keeps per-round acceptance far below the structural
     # goals' tile width.
     candidate_width_hint = 1024
+    # One scalar channel per broker (the resource's load) against one
+    # target (the alive average utilization times capacity): the shape the
+    # relaxation path lowers (analyzer/relax.py).
+    relax_eligible = True
     resource: int = Resource.DISK
 
     def __init__(self, resource: int, name: str):
@@ -171,6 +175,17 @@ class ResourceDistributionGoal(Goal):
         own = head_frac[:, resources.index(self.resource)]
         score = head_frac.amin(dim=-1) + 1e-3 * own
         return torch.where(alive_mask(gctx), score, -torch.inf)
+
+    def relax_weights(self, gctx, placement):
+        load = torch.where(placement.is_leader[:, None],
+                           gctx.state.leader_load, gctx.state.follower_load)
+        return load[:, self.resource]
+
+    def relax_channel(self, gctx, agg):
+        res = self.resource
+        avg = avg_alive_util_fraction(gctx, agg, res)
+        cap = gctx.state.capacity[:, res]
+        return agg.broker_load[:, res], avg * cap, torch.clamp(cap, min=1e-9)
 
     def dst_cumulative_slack(self, gctx, placement, agg, cand_load, is_lead_cand):
         upper, _, _ = self._bounds(gctx, agg)

@@ -227,6 +227,7 @@ class KafkaAssignerDiskUsageDistributionGoal(ResourceDistributionGoal):
     uses_replica_moves = False
     has_pull_phase = False
     has_swap_phase = True
+    relax_eligible = False
 
     def __init__(self):
         super().__init__(Resource.DISK, "KafkaAssignerDiskUsageDistributionGoal")

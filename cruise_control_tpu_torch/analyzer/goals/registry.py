@@ -122,8 +122,25 @@ DEFAULT_INTRA_BROKER_GOALS: List[str] = [
 SUPPORTED_GOALS: List[str] = list(_FACTORIES)
 
 
+# Goals the convex-relaxation path (analyzer/relax.py) may lower to a
+# fractional solve: the resource- and count-distribution families, whose
+# objective is one scalar channel per broker.  Derived from the goal
+# classes' ``relax_eligible`` attribute, as in the JAX package.
+RELAX_ELIGIBLE_GOALS: List[str] = [
+    name for name, factory in _FACTORIES.items()
+    if getattr(factory, "relax_eligible", False)
+]
+
+
 def _bare(name: str) -> str:
     return name.rsplit(".", 1)[-1]
+
+
+def is_relax_eligible(name: str) -> bool:
+    """True when the (bare or fully-qualified) goal name may take the
+    relax→repair path; unknown names are simply ineligible."""
+    factory = _FACTORIES.get(_bare(name))
+    return bool(factory is not None and getattr(factory, "relax_eligible", False))
 
 
 def goal_by_name(name: str) -> Goal:

@@ -86,6 +86,29 @@ class GoalOptimizationInfo:
     stranded_after: int = 0
     metric_before: float = 0.0
     metric_after: float = 0.0
+    # The solve's budget expired or was cancelled before this goal
+    # converged (anytime result: the placement is the best found so far,
+    # still feasible and prior-goal-safe; see SolveBudget).
+    preempted: bool = False
+    # Why the solve stopped early ("deadline", "cancelled", operator reason).
+    preempt_reason: Optional[str] = None
+    # Convex-relaxation path (analyzer/relax.py).  When relaxed=True the
+    # info covers the whole relax+round+repair pass: metric/violated
+    # "before" are re-anchored at the pre-relax placement, moves_applied
+    # includes the rounding waves' moves, and rounds is the greedy repair's
+    # round count (mirrored in repair_rounds).  relax_fallback marks a pass
+    # whose relaxed result regressed and was discarded for pure greedy.
+    relaxed: bool = False
+    relax_ms: float = 0.0
+    repair_rounds: int = 0
+    relax_fallback: bool = False
+    # Moves the rounding waves kept (the JAX package's
+    # Solver.relax.fractional-moves gauge).
+    relax_moves: int = 0
+
+    @property
+    def succeeded(self) -> bool:
+        return self.violated_brokers_after == 0
 
 
 def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
@@ -727,8 +750,11 @@ class GoalSolver:
                  # Destination-axis tile for goals declaring dst_prune_score
                  # (0 disables): band/count goals only ever send load to the
                  # top few hundred headroom brokers in one round.
-                 max_dst_candidates: int = 1024):
+                 max_dst_candidates: int = 1024,
+                 # Rounds between budget checks in a segmented solve.
+                 segment_rounds: int = 8):
         self.max_candidates = max_candidates_per_round
+        self.segment_rounds = max(1, int(segment_rounds))
         self.max_rounds = max_rounds_per_goal
         self.max_swap_candidates = max_swap_candidates
         self.max_dst_candidates = max_dst_candidates
@@ -823,16 +849,26 @@ class GoalSolver:
 
     def optimize_goal(self, goal: Goal, priors: Sequence[Goal], gctx: GoalContext,
                       placement: Placement, agg: Optional[Aggregates] = None,
+                      budget=None, width: Optional[int] = None,
                       ) -> Tuple[Placement, Aggregates, GoalOptimizationInfo]:
         """Run rounds until converged (the reference's per-goal
         ``while !finished`` loop, GoalOptimizer.java:437-462).
 
         ``agg`` lets the caller thread one goal's exact final aggregates into
         the next goal's solve; the returned aggregates are a fresh full
-        recompute, or the entry aggregates when no round ran."""
+        recompute, or the entry aggregates when no round ran.
+
+        ``budget`` (a :class:`~cruise_control_tpu_torch.analyzer.budget.SolveBudget`
+        with ``segmented`` set) is checked before the first round and at
+        every ``segment_rounds``-th round boundary where the loop would go
+        on; when it stops the solve, the placement so far is returned with
+        ``preempted`` set.  The rounds are the same either way, so a
+        segmented solve run to convergence equals an unbudgeted one.
+        ``width`` replaces the goal's candidate width (what-if lanes run
+        every goal at one width)."""
         if agg is None:
             agg = self.aggregates(gctx, placement)
-        c = self._width(goal, gctx.state.num_replicas_padded)
+        c = self._width(goal, gctx.state.num_replicas_padded) if width is None else width
         runner = self._phases_runner(goal, tuple(priors), c)
         dev = gctx.state.device
         violated0 = goal.violated_brokers(gctx, placement, agg).sum()
@@ -848,13 +884,21 @@ class GoalSolver:
         # Soft goals only: a hard goal must exhaust its round budget before
         # the hard-goal check declares failure.
         use_stall_cutoff = not goal.is_hard
-        while rounds < self.max_rounds:
+        segmented = budget is not None and budget.segmented
+        # The JAX package checks a segmented budget once before the first
+        # segment, then after each segment that left the loop unfinished.
+        stop = budget.stop_reason() if segmented else None
+        while stop is None and rounds < self.max_rounds:
             # The loop condition: the one host sync of each round.
             v, s, a, st = torch.stack([violated, stranded, applied_last, stall]).tolist()
             if not ((v > 0 or s > 0) and (rounds == 0 or a > 0)):
                 break
             if use_stall_cutoff and st >= self.stall_limit:
                 break
+            if segmented and rounds > 0 and rounds % self.segment_rounds == 0:
+                stop = budget.stop_reason()
+                if stop is not None:
+                    break
             if rounds > 0 and rounds % self.AGG_RESYNC_ROUNDS == 0:
                 ag = compute_aggregates(gctx, pl)
             pl, ag, applied, violated, stranded, metric = runner(gctx, pl, ag, rounds)
@@ -889,6 +933,8 @@ class GoalSolver:
             stranded_after=int(vals[3]),
             metric_before=vals[4],
             metric_after=vals[5],
+            preempted=stop is not None,
+            preempt_reason=stop,
         )
         return pl, ag, info
 

@@ -2,9 +2,10 @@
 
 Snapshot file → tensors → GoalOptimizer → proposals printed as JSON (the
 reference flow is ``POST /rebalance?dryrun=true`` via RebalanceRunnable →
-GoalOptimizer).  Reads the NPZ snapshots that either package writes.
+GoalOptimizer).  Reads the NPZ and JSON snapshots that either package
+writes.
 
-    python -m cruise_control_tpu_torch.client.propose --snapshot X.npz \\
+    python -m cruise_control_tpu_torch.client.propose --snapshot X.npz|X.json \\
         [--goals RackAwareGoal,...] [--device cpu] [--verbose]
 """
 
@@ -21,14 +22,19 @@ def run_propose(args, out: Optional[TextIO] = None) -> int:
     (stdout by default).  Returns the process exit code."""
     from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
     from cruise_control_tpu_torch.common.exceptions import OptimizationFailureError
-    from cruise_control_tpu_torch.model.snapshot import load_npz
+    from cruise_control_tpu_torch.model.snapshot import load_json, load_npz
 
     out = out or sys.stdout
-    if not args.snapshot.endswith(".npz"):
-        print(json.dumps({"error": "only .npz snapshots are supported by the "
-                                   "port so far"}), file=sys.stderr)
-        return 1
-    state, placement, meta = load_npz(args.snapshot, device=args.device)
+    if args.snapshot.endswith(".npz"):
+        state, placement, meta = load_npz(args.snapshot, device=args.device)
+    else:
+        try:
+            cm = load_json(args.snapshot)
+        except json.JSONDecodeError as e:
+            print(json.dumps({"error": f"snapshot is neither .npz nor JSON: {e}"}),
+                  file=sys.stderr)
+            return 1
+        state, placement, meta = cm.freeze(device=args.device)
     goal_names = args.goals.split(",") if args.goals else None
     optimizer = GoalOptimizer(goal_names=goal_names)
     try:
@@ -50,7 +56,7 @@ def run_propose(args, out: Optional[TextIO] = None) -> int:
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="python -m cruise_control_tpu_torch.client.propose",
                                 description="Compute rebalance proposals for a snapshot.")
-    p.add_argument("--snapshot", required=True, help="snapshot file (.npz)")
+    p.add_argument("--snapshot", required=True, help="snapshot file (.npz or .json)")
     p.add_argument("--goals", default=None,
                    help="comma-separated goal names in priority order")
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")

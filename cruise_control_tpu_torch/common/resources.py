@@ -27,8 +27,18 @@ class Resource(enum.IntEnum):
     def resource(self) -> str:
         return _NAMES[self.value]
 
+    @classmethod
+    def from_name(cls, name: str) -> "Resource":
+        try:
+            return _BY_NAME[name.lower()]
+        except KeyError:
+            raise ValueError(f"unknown resource name: {name!r}") from None
+
 
 _NAMES = ("cpu", "networkInbound", "networkOutbound", "disk")
+_BY_NAME = {"cpu": Resource.CPU, "networkinbound": Resource.NW_IN,
+            "networkoutbound": Resource.NW_OUT, "disk": Resource.DISK,
+            "nw_in": Resource.NW_IN, "nw_out": Resource.NW_OUT}
 
 # Scoping masks, indexable by resource id.
 IS_HOST_RESOURCE = np.array([True, True, True, False])

@@ -29,6 +29,21 @@ class CpuModelParams:
 DEFAULT_PARAMS = CpuModelParams()
 
 
+def follower_cpu_from_leader_load(bytes_in: float, bytes_out: float, leader_cpu: float,
+                                  params: CpuModelParams = DEFAULT_PARAMS) -> float:
+    """CPU a replica would use as follower, from its leader-role load
+    (ModelUtils.getFollowerCpuUtilFromLeaderLoad :61-78).  The builder's
+    form: a non-positive weighted denominator gives 0, where the vectorized
+    form below clamps it to 1e-12."""
+    if bytes_in == 0.0 and bytes_out == 0.0:
+        return 0.0
+    denom = (params.leader_bytes_in_weight * bytes_in
+             + params.leader_bytes_out_weight * bytes_out)
+    if denom <= 0.0:
+        return 0.0
+    return leader_cpu * (params.follower_bytes_in_weight * bytes_in) / denom
+
+
 def follower_cpu_from_leader_load_vec(bytes_in: np.ndarray, bytes_out: np.ndarray,
                                       leader_cpu: np.ndarray,
                                       params: CpuModelParams = DEFAULT_PARAMS) -> np.ndarray:

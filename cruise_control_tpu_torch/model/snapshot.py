@@ -1,15 +1,24 @@
-"""Cluster snapshot serialization: the NPZ codec.
+"""Cluster snapshot serialization.
 
-The file layout is the JAX package's (``cruise_control_tpu/model/snapshot.py``
-``save_npz`` / ``load_npz``), so one snapshot file feeds both packages.
+Two codecs, with the JAX package's file formats
+(``cruise_control_tpu/model/snapshot.py``), so one snapshot file feeds both
+packages:
+
+- JSON: human-readable, brokers and partitions with per-resource loads (the
+  schema of the reference's ``load`` endpoint); read into a
+  :class:`ClusterModel`, which ``freeze`` turns into tensors.
+- NPZ: the packed arrays, for large snapshots.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import json
+from typing import Dict, Tuple
 
 import numpy as np
 
+from cruise_control_tpu_torch.common.resources import Resource
+from cruise_control_tpu_torch.model.builder import ClusterModel
 from cruise_control_tpu_torch.model.state import (
     ClusterMeta,
     ClusterState,
@@ -18,6 +27,81 @@ from cruise_control_tpu_torch.model.state import (
     state_from_packed,
     state_to_numpy,
 )
+
+_RES_KEYS = ("cpu", "networkInbound", "networkOutbound", "disk")
+
+
+def model_to_json_dict(cm: ClusterModel) -> Dict:
+    brokers = []
+    for b in cm.brokers():
+        brokers.append({
+            "brokerId": b.broker_id,
+            "rack": b.rack,
+            "host": b.host,
+            "alive": b.alive,
+            "newBroker": b.new_broker,
+            "capacity": {k: float(b.capacity[i]) for i, k in enumerate(_RES_KEYS)},
+            "diskCapacities": [float(x) for x in b.disk_capacities],
+            "diskAlive": [bool(x) for x in b.disk_alive],
+        })
+    partitions = []
+    for (topic, part), replicas in cm.partitions().items():
+        partitions.append({
+            "topic": topic,
+            "partition": part,
+            "replicas": [{
+                "brokerId": r.broker_id,
+                "isLeader": r.is_leader,
+                "disk": r.disk,
+                "load": {k: float(r.leader_load[i]) for i, k in enumerate(_RES_KEYS)},
+                "followerLoad": (None if r.follower_load is None else
+                                 {k: float(r.follower_load[i])
+                                  for i, k in enumerate(_RES_KEYS)}),
+            } for r in replicas],
+        })
+    return {"version": 1, "brokers": brokers, "partitions": partitions}
+
+
+def model_from_json_dict(doc: Dict) -> ClusterModel:
+    cm = ClusterModel()
+    for b in doc["brokers"]:
+        cap = {Resource.from_name(k): v for k, v in b["capacity"].items()}
+        disks = b.get("diskCapacities")
+        cm.create_broker(rack=b["rack"], host=b.get("host", f"h{b['brokerId']}"),
+                         broker_id=b["brokerId"], capacity=cap,
+                         disk_capacities=disks if disks and len(disks) > 1 else None,
+                         new_broker=b.get("newBroker", False))
+    for p in doc["partitions"]:
+        for i, r in enumerate(p["replicas"]):
+            cm.create_replica(p["topic"], p["partition"], broker_id=r["brokerId"],
+                              index=i, is_leader=r["isLeader"], disk=r.get("disk", 0))
+            load = [r["load"][k] for k in _RES_KEYS]
+            fl = r.get("followerLoad")
+            cm.set_replica_load(p["topic"], p["partition"], r["brokerId"], load,
+                                follower_load=None if fl is None
+                                else [fl[k] for k in _RES_KEYS])
+    # Dead brokers and dead disks: applied after the replicas exist, so the
+    # offline flags propagate to them.
+    for b in doc["brokers"]:
+        if not b.get("alive", True):
+            cm.set_broker_state(b["brokerId"], alive=False)
+        for d, ok in enumerate(b.get("diskAlive", [])):
+            if not ok:
+                cm.mark_disk_dead(b["brokerId"], d)
+    return cm
+
+
+def save_json(cm: ClusterModel, path: str) -> None:
+    with open(path, "w") as f:
+        json.dump(model_to_json_dict(cm), f)
+
+
+def load_json(path: str) -> ClusterModel:
+    with open(path) as f:
+        return model_from_json_dict(json.load(f))
+
+
+# ------------------------------------------------------------------ NPZ codec
 
 _REPLICA_KEYS = ("leader_load", "follower_load", "partition", "topic", "pos",
                  "orig_broker", "offline", "assignment", "disk", "is_leader")

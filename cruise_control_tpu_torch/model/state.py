@@ -18,10 +18,12 @@ int64 only where a scatter needs it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from cruise_control_tpu_torch.common.resources import NUM_RESOURCES
 
 
 @dataclasses.dataclass
@@ -99,6 +101,7 @@ class ClusterMeta:
         hosts: List[str],
         num_replicas: int,
         num_brokers: int,
+        extra: Optional[Dict[str, Any]] = None,
     ):
         self.broker_ids = broker_ids
         self.topics = topics
@@ -107,6 +110,7 @@ class ClusterMeta:
         self.hosts = hosts
         self.num_replicas = num_replicas      # true (unpadded) counts
         self.num_brokers = num_brokers
+        self.extra = extra or {}
         self.broker_index = {b: i for i, b in enumerate(broker_ids)}
 
     @property
@@ -215,3 +219,109 @@ def state_to_numpy(state: ClusterState,
     out["is_leader"] = placement.is_leader.cpu().numpy()
     return out
 
+
+# --------------------------------------------------------------------- deltas
+
+# Replica-axis fields a delta may rewrite, with the per-row dtype and shape
+# each update array carries.  ``broker``/``disk``/``is_leader`` live on
+# Placement; everything else on ClusterState.
+REPLICA_DELTA_FIELDS: Tuple[Tuple[str, Any, Tuple[int, ...]], ...] = (
+    ("leader_load", np.float32, (NUM_RESOURCES,)),
+    ("follower_load", np.float32, (NUM_RESOURCES,)),
+    ("partition", np.int32, ()),
+    ("topic", np.int32, ()),
+    ("pos", np.int32, ()),
+    ("orig_broker", np.int32, ()),
+    ("offline", np.bool_, ()),
+    ("valid", np.bool_, ()),
+    ("broker", np.int32, ()),
+    ("disk", np.int32, ()),
+    ("is_leader", np.bool_, ()),
+)
+
+BROKER_DELTA_FIELDS: Tuple[Tuple[str, Any], ...] = (
+    ("capacity", np.float32),
+    ("alive", np.bool_),
+    ("new_broker", np.bool_),
+    ("disk_capacity", np.float32),
+    ("disk_alive", np.bool_),
+)
+
+_PLACEMENT_DELTA = frozenset({"broker", "disk", "is_leader"})
+
+
+@dataclasses.dataclass
+class ClusterDelta:
+    """A sparse host-side edit script against a frozen snapshot.
+
+    ``replica_idx``/``broker_idx`` name the rows to rewrite; the update dicts
+    carry one array per rewritten field (same dtypes as the frozen tensors).
+    ``perm`` (when set) is a full row permutation applied *before* the
+    scatter: ``new_row i <- old_row perm[i]``; it carries surviving rows to
+    their new positions after replica creation or deletion shifted the dense
+    partition ids, and fresh and freed rows are always also in
+    ``replica_idx``, so their gathered content is overwritten.  ``meta``
+    replaces the snapshot's ClusterMeta when the partition table changed.
+    """
+
+    replica_idx: np.ndarray                  # i32[U]
+    replica_updates: Dict[str, np.ndarray]   # REPLICA_DELTA_FIELDS arrays, [U,...]
+    broker_idx: np.ndarray                   # i32[V]
+    broker_updates: Dict[str, np.ndarray]    # BROKER_DELTA_FIELDS arrays, [V,...]
+    perm: Optional[np.ndarray] = None        # i32[R_pad]
+    meta: Optional[ClusterMeta] = None
+    from_version: int = 0
+    to_version: int = 0
+
+    @property
+    def num_updates(self) -> int:
+        return int(self.replica_idx.shape[0]) + int(self.broker_idx.shape[0])
+
+    @property
+    def is_empty(self) -> bool:
+        return self.num_updates == 0 and self.perm is None
+
+
+def empty_delta(from_version: int = 0, to_version: int = 0) -> ClusterDelta:
+    z = np.zeros(0, dtype=np.int32)
+    return ClusterDelta(
+        replica_idx=z,
+        replica_updates={k: np.zeros((0,) + shp, dtype=dt)
+                         for k, dt, shp in REPLICA_DELTA_FIELDS},
+        broker_idx=z.copy(),
+        broker_updates={},
+        from_version=from_version, to_version=to_version)
+
+
+def _scatter(x: torch.Tensor, idx: np.ndarray, upd: np.ndarray) -> torch.Tensor:
+    """A copy of ``x`` with rows ``idx`` set to ``upd`` (an index write)."""
+    out = x.clone()
+    out[torch.as_tensor(idx, dtype=torch.int64, device=x.device)] = torch.as_tensor(
+        upd, device=x.device)
+    return out
+
+
+def apply_deltas(state: ClusterState, placement: Placement,
+                 delta: ClusterDelta) -> Tuple[ClusterState, Placement]:
+    """``(state, placement)`` with ``delta`` applied: the permutation gather
+    (when set), then the replica-row and broker-row index writes.  Returns
+    new tensors and leaves the inputs as they were; equal, bit for bit, to a
+    fresh freeze of the builder that emitted the delta."""
+    rows = {k: getattr(placement if k in _PLACEMENT_DELTA else state, k)
+            for k, _, _ in REPLICA_DELTA_FIELDS}
+    if delta.perm is not None:
+        perm = torch.as_tensor(delta.perm.astype(np.int64), device=state.device)
+        # Fresh rows carry a negative perm entry: the clip makes the gather
+        # well defined, and the scatter below overwrites what it fetched.
+        cl = perm.clamp(0, state.num_replicas_padded - 1)
+        rows = {k: v[cl] for k, v in rows.items()}
+    if delta.replica_idx.shape[0]:
+        rows = {k: _scatter(v, delta.replica_idx, delta.replica_updates[k])
+                for k, v in rows.items()}
+    brokers = {}
+    if delta.broker_idx.shape[0] and delta.broker_updates:
+        brokers = {k: _scatter(getattr(state, k), delta.broker_idx, delta.broker_updates[k])
+                   for k, _ in BROKER_DELTA_FIELDS}
+    state = dataclasses.replace(
+        state, **{k: v for k, v in rows.items() if k not in _PLACEMENT_DELTA}, **brokers)
+    return state, placement.replace(**{k: rows[k] for k in _PLACEMENT_DELTA})

@@ -35,6 +35,15 @@ def test_no_forbidden_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_scan_covers_every_module_of_the_port():
+    """Both checks walk the whole package: the builder, the JSON snapshot,
+    the fixtures, budgets, relaxation and lanes included."""
+    names = {".".join(p.relative_to(PORT).with_suffix("").parts) for p in _port_modules()}
+    assert {"model.builder", "model.snapshot", "model.state", "model.cpu_model",
+            "testing.deterministic", "analyzer.budget", "analyzer.relax",
+            "analyzer.optimizer", "analyzer.solver", "client.propose"} <= names
+
+
 def test_fresh_interpreter_import_pulls_no_jax():
     mods = [".".join(p.relative_to(ROOT).with_suffix("").parts)
             for p in _port_modules() if p.name != "__init__.py"]

@@ -188,9 +188,12 @@ def test_run_propose_each_goal_alone(snapshot_path, goal, capsys):
 
 
 def test_run_propose_rejects_other_formats(tmp_path, capsys):
-    assert run_propose(parse_args(["--snapshot", str(tmp_path / "x.json"),
-                                   "--device", "cpu"])) == 1
-    assert "npz" in capsys.readouterr().err
+    """A snapshot that is neither NPZ nor JSON is refused with exit code 1
+    (a ``.json`` file is read as JSON, as the JAX package reads it)."""
+    path = tmp_path / "x.txt"
+    path.write_text("not a snapshot")
+    assert run_propose(parse_args(["--snapshot", str(path), "--device", "cpu"])) == 1
+    assert "neither .npz nor JSON" in capsys.readouterr().err
 
 
 def test_run_propose_rejects_unported_goal(snapshot_path):
