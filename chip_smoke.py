@@ -15,8 +15,11 @@ leaders), and the north-star cluster (BASELINE config #4: 2,600 brokers, 1M
 replicas) on the default stack.  Then the slice of the builder, budgets,
 lanes and relaxation: the DeterministicCluster fixtures (BASELINE config
 #1), the propose from a JSON snapshot, remove- and add-broker what-if lanes
-(BASELINE config #5), budgeted solves and the relaxation path, each phase
-counting the kernel's launches.  Prints one JSON object per phase; the last
+(BASELINE config #5), budgeted solves and the relaxation path.  Then the
+load monitor (synthetic windows to a model on the card, a propose, and the
+resident model's delta apply when a broker dies) at BASELINE #3, and the
+resident steady state of bench config #6 at 1M replicas.  Each phase counts
+the kernel's launches.  Prints one JSON object per phase; the last
 line is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, when CUDA is unavailable or the port's package is not beside this
 script, and whenever a check fails.
@@ -74,6 +77,27 @@ ADD_GOALS = ["RackAwareGoal", "ReplicaCapacityGoal", "ReplicaDistributionGoal"]
 ADD_CANDIDATES = 4
 # Removal lanes of the relax phase (the full default stack at BASELINE #3).
 RELAX_LANES = 4
+# The monitor phase at BASELINE #3: windows of synthetic samples (window
+# length, windows kept, windows bootstrapped), the completeness asked for,
+# and the capacities' headroom: the mean broker's synthetic load is this
+# share of each capacity.
+MONITOR_WINDOW_MS = 1000
+MONITOR_WINDOWS = 5
+MONITOR_BOOTSTRAP_WINDOWS = 6
+MONITOR_MIN_WINDOWS = 3
+MONITOR_MIN_PARTITIONS = 0.9
+MONITOR_MEAN_LOAD_SHARE = 0.4
+# The soft goals whose no-worsen verdict the monitor phase accepts from the
+# default stack on the synthetic loads: the JAX package gives these verdicts on
+# the phase's model too (tests/test_torch_monitor.py, scripts/monitor_verdicts.py).
+MONITOR_NO_WORSEN_GOALS = ("NetworkOutboundUsageDistributionGoal", "CpuUsageDistributionGoal")
+# Bench config #6 (bench.py:849-1016): the resident steady state on the
+# healthy north-star cluster, its six hard goals, 64 partitions' loads
+# changed a round, three timed rounds after one untimed.
+RESIDENT = dict(HEALTHY, seed=3143)
+RESIDENT_MUTATIONS = 64
+RESIDENT_ROUNDS = 3
+RESIDENT_MUTATION_SEED = 314159
 # The small cluster on which the CUDA run is held against the CPU run.
 SMALL = dict(num_brokers=20, num_racks=5, num_topics=50, num_replicas=2000,
              mean_cpu=0.005, mean_disk=2100.0, mean_nw_in=2000.0,
@@ -841,6 +865,308 @@ def relax_phase(aggregate, props, lanes, device="cuda"):
     return out
 
 
+def span_ms(rollup, name):
+    """(count, total ms) of one span name in a tracer rollup."""
+    row = rollup.get(name, {"count": 0, "total_ms": 0.0})
+    return row["count"], row["total_ms"]
+
+
+def packed_equal(a, b):
+    """Two packed dicts of arrays equal in names, dtypes, shapes and bytes."""
+    return sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+        and a[k].tobytes() == b[k].tobytes() for k in b)
+
+
+def metadata_backend(builder):
+    """The port's fake metadata backend for a built cluster: brokers with
+    their rack and host, partitions with leader, replicas (in replica-list
+    order) and ISR."""
+    from cruise_control_tpu_torch.monitor.metadata import (BrokerInfo, FakeMetadataBackend,
+                                                           PartitionInfo)
+    brokers = [BrokerInfo(b.broker_id, rack=b.rack, host=b.host, alive=b.alive)
+               for b in builder.brokers()]
+    parts = []
+    for (t, p), reps in builder.partitions().items():
+        ids = tuple(r.broker_id for r in reps)
+        leader = next((r.broker_id for r in reps if r.is_leader), None)
+        parts.append(PartitionInfo(topic=t, partition=p, leader=leader, replicas=ids,
+                                   in_sync=ids))
+    return FakeMetadataBackend(brokers, parts)
+
+
+def synthetic_capacity(sampler, replicas, partitions, brokers):
+    """Capacities at which the mean broker's synthetic load (the sampler's
+    mean rates at jitter 1, every partition led once, followers at the CPU
+    model's follower share) is MONITOR_MEAN_LOAD_SHARE of each resource."""
+    from cruise_control_tpu_torch.common.resources import Resource
+    from cruise_control_tpu_torch.model.cpu_model import follower_cpu_from_leader_load
+    follower_cpu = follower_cpu_from_leader_load(sampler.mean_bytes_in, sampler.mean_bytes_out,
+                                                 sampler.cpu_per_partition)
+    followers = replicas - partitions
+    mean = {Resource.CPU: partitions * sampler.cpu_per_partition + followers * follower_cpu,
+            Resource.NW_IN: replicas * sampler.mean_bytes_in,
+            Resource.NW_OUT: partitions * sampler.mean_bytes_out,
+            Resource.DISK: replicas * sampler.mean_size}
+    return {r: v / brokers / MONITOR_MEAN_LOAD_SHARE for r, v in mean.items()}
+
+
+def solve_summary(aggregate, res, wall, hard):
+    """The checks and numbers of one propose: hard goals met, proposals
+    well formed, the kernel launched."""
+    launches = aggregate.LAUNCHES
+    check(launches > 0, "the aggregate kernel launched 0 times")
+    check(not set(res.violated_goals_after) & hard,
+          f"hard goals violated after: {res.violated_goals_after}")
+    check_proposals([p.to_dict() for p in res.proposals])
+    return dict(wall_s=wall, kernel_launches=launches,
+                violated_goals_after=res.violated_goals_after,
+                balancedness=res.balancedness_score, proposals=len(res.proposals))
+
+
+def monitor_phase(aggregate, props, device="cuda"):
+    """The load monitor on a generated cluster: windows of synthetic samples
+    bootstrapped through the task runner, the model frozen onto ``device``
+    and onto the CPU (equal bit for bit), a propose on the default stack and
+    one on the hard goals, then the resident path: the kept builder and the
+    resident service give the same tensors when nothing changed, and one
+    delta apply, equal to a fresh freeze, when a broker dies; the default
+    stack's re-propose empties that broker."""
+    from cruise_control_tpu_torch.analyzer.goals.registry import (DEFAULT_GOALS,
+                                                                   DEFAULT_HARD_GOALS)
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.common.exceptions import OptimizationFailureError
+    from cruise_control_tpu_torch.compilesvc.buckets import ShapeBucketPolicy
+    from cruise_control_tpu_torch.model.builder import builder_from_snapshot
+    from cruise_control_tpu_torch.model.resident import ResidentModelService
+    from cruise_control_tpu_torch.model.state import state_to_numpy
+    from cruise_control_tpu_torch.monitor.capacity import FixedBrokerCapacityResolver
+    from cruise_control_tpu_torch.monitor.load_monitor import (LoadMonitor,
+                                                               ModelCompletenessRequirements)
+    from cruise_control_tpu_torch.monitor.metadata import MetadataClient
+    from cruise_control_tpu_torch.monitor.sampler import SyntheticWorkloadSampler
+    from cruise_control_tpu_torch.monitor.task_runner import LoadMonitorTaskRunner
+    from cruise_control_tpu_torch.obsvc.tracer import tracer
+    from cruise_control_tpu_torch.testing import random_cluster as rc
+    hard = hard_names(DEFAULT_GOALS)
+    pad = ShapeBucketPolicy().pad_targets
+    st, pl, mt = rc.generate(rc.ClusterProperties(**props), device="cpu")
+    backend = metadata_backend(builder_from_snapshot(st, pl, mt))
+    del st, pl
+    sampler = SyntheticWorkloadSampler()
+    capacity = synthetic_capacity(sampler, mt.num_replicas, mt.num_partitions, mt.num_brokers)
+    lm = LoadMonitor(MetadataClient(backend, ttl_ms=0),
+                     capacity_resolver=FixedBrokerCapacityResolver(capacity),
+                     num_windows=MONITOR_WINDOWS, window_ms=MONITOR_WINDOW_MS,
+                     min_samples_per_window=1)
+    runner = LoadMonitorTaskRunner(lm, sampler, sampling_interval_ms=MONITOR_WINDOW_MS)
+    t0 = time.monotonic()
+    ingested = runner.bootstrap(0, MONITOR_BOOTSTRAP_WINDOWS * MONITOR_WINDOW_MS)
+    bootstrap_s = time.monotonic() - t0
+    check(lm.meet_completeness_requirements(ModelCompletenessRequirements(
+        MONITOR_MIN_WINDOWS, MONITOR_MIN_PARTITIONS)), "monitor: completeness not met")
+    t0 = time.monotonic()
+    agg_res = lm.partition_aggregator.aggregate(-float("inf"), float("inf"))
+    aggregate_ms = (time.monotonic() - t0) * 1e3
+    out = dict(replicas=mt.num_replicas, partitions=mt.num_partitions, brokers=mt.num_brokers,
+               capacity={r.name: v for r, v in capacity.items()}, samples_ingested=ingested,
+               bootstrap_s=bootstrap_s, aggregate_ms=aggregate_ms,
+               valid_windows=agg_res.completeness.valid_windows,
+               valid_partition_ratio=agg_res.completeness.valid_entity_ratio)
+    frozen = {}
+    for dev in (device, "cpu"):
+        t0 = time.monotonic()
+        frozen[dev] = lm.cluster_model(pad_fn=pad, device=dev)
+        sync(dev)
+        out[f"cluster_model_s_{'card' if dev == device else 'cpu'}"] = time.monotonic() - t0
+    cs, cp, cm = frozen[device]
+    same = packed_equal(state_to_numpy(cs, cp), state_to_numpy(*frozen["cpu"][:2]))
+    out["card_and_cpu_freezes_equal"] = same
+    check(same, "monitor: the card's freeze differs from the CPU's")
+    check(cs.device.type == str(device).split(":")[0], "monitor: the model is not on the device")
+    # The default stack on the healthy model.  On the synthetic sampler's
+    # loads both packages' no-worsen verdict can fail a goal of
+    # MONITOR_NO_WORSEN_GOALS (a partition's replicas share one load vector,
+    # only leaders carry NW_OUT): that outcome is recorded; any other failure
+    # fails the phase.  The hard goals' propose is checked.
+    aggregate.LAUNCHES = 0
+    t0 = time.monotonic()
+    try:
+        res = GoalOptimizer().optimizations(cs, cp, cm, model_generation=lm.model_generation)
+        sync(device)
+        out["propose_default_stack"] = solve_summary(aggregate, res, time.monotonic() - t0, hard)
+    except OptimizationFailureError as e:
+        sync(device)
+        check(any(str(e).startswith(f"[{g}] optimized result is worse than before")
+                  for g in MONITOR_NO_WORSEN_GOALS), f"monitor: the default stack failed: {e}")
+        check(aggregate.LAUNCHES > 0, "monitor: the aggregate kernel launched 0 times")
+        out["propose_default_stack"] = dict(raised=str(e), wall_s=time.monotonic() - t0,
+                                            kernel_launches=aggregate.LAUNCHES)
+    aggregate.LAUNCHES = 0
+    t0 = time.monotonic()
+    res = GoalOptimizer(goal_names=DEFAULT_HARD_GOALS).optimizations(
+        cs, cp, cm, model_generation=lm.model_generation)
+    sync(device)
+    out["propose_hard_goals"] = solve_summary(aggregate, res, time.monotonic() - t0, hard)
+    check(len(res.proposals) > 0, "monitor: no proposals")
+
+    # The resident path: full freeze, an unchanged request, a dead broker.
+    trc = tracer()
+    trc.configure(enabled=True, ring_size=32)
+    trc.rollup(reset=True)
+    svc = ResidentModelService(device=device)
+    t0 = time.monotonic()
+    builder, fresh = lm.resident_model_builder()
+    first = svc.snapshot(builder, pad, pin=True)
+    svc.release()
+    full_snapshot_s = time.monotonic() - t0
+    rollup = trc.rollup()
+    before = svc.stats()
+    builder2, fresh2 = lm.resident_model_builder()
+    again = svc.snapshot(builder2, pad, pin=True)
+    svc.release()
+    after = svc.stats()
+    check(fresh and not fresh2 and builder2 is builder and again[0] is first[0]
+          and after["fullFreezes"] == before["fullFreezes"]
+          and after["deltaApplies"] == before["deltaApplies"],
+          "monitor: an unchanged request did not return the resident tensors")
+    dead = cm.broker_ids[0]
+    backend.kill_broker(dead)
+    builder3, fresh3 = lm.resident_model_builder()
+    s3, p3, m3 = svc.snapshot(builder3, pad, pin=True)
+    killed = svc.stats()
+    rollup = trc.rollup()
+    try:
+        applies = killed["deltaApplies"] - after["deltaApplies"]
+        freezes = killed["fullFreezes"] - after["fullFreezes"]
+        check(not fresh3 and applies == 1 and freezes == 0,
+              f"monitor: the dead broker took {applies} applies, {freezes} full freezes")
+        fresh_arrays = state_to_numpy(*lm.cluster_model(pad_fn=pad, device="cpu")[:2])
+        equal = packed_equal(state_to_numpy(s3, p3), fresh_arrays)
+        check(equal, "monitor: the delta-applied tensors differ from a fresh freeze")
+        aggregate.LAUNCHES = 0
+        t0 = time.monotonic()
+        res2 = GoalOptimizer().optimizations(s3, p3, m3, model_generation=lm.model_generation)
+        sync(device)
+        summary = solve_summary(aggregate, res2, time.monotonic() - t0, hard)
+    finally:
+        svc.release()
+    valid = s3.valid.cpu().numpy()
+    left = int((res2.final_placement.broker.cpu().numpy()[valid] == m3.broker_index[dead]).sum())
+    on_dead = int((p3.broker.cpu().numpy()[valid] == m3.broker_index[dead]).sum())
+    check(on_dead > 0 and left == 0, f"monitor: {left} of {on_dead} replicas left on the "
+          f"dead broker {dead}")
+    freeze_n, freeze_ms = span_ms(rollup, "model.freeze")
+    transfer_n, transfer_ms = span_ms(rollup, "model.transfer")
+    apply_n, apply_ms = span_ms(rollup, "model.delta_apply")
+    out["resident"] = dict(
+        full_snapshot_s=full_snapshot_s, freeze_ms=freeze_ms / max(freeze_n, 1),
+        transfer_ms=transfer_ms / max(transfer_n, 1),
+        freeze_transfer_ms=(freeze_ms + transfer_ms) / max(freeze_n, 1),
+        delta_apply_ms=apply_ms / max(apply_n, 1),
+        freeze_transfer_over_delta_apply=(freeze_ms + transfer_ms) / max(apply_ms, 1e-9),
+        unchanged_request_same_tensors=True, dead_broker=dead,
+        dead_broker_replicas=on_dead, delta_applies=applies, full_freezes_after_kill=freezes,
+        equal_to_fresh_freeze=equal, stats=svc.stats(), repropose=summary,
+        replicas_left_on_dead_broker=left)
+    trc.configure(enabled=False, ring_size=32)
+    return out
+
+
+def resident_phase(aggregate, props, mutations, rounds, device="cuda"):
+    """Bench config #6: one full freeze seeds the resident service from a
+    builder of the generated cluster; a base solve of the six hard goals;
+    then rounds that each change ``mutations`` partitions' loads on the
+    same builder and re-propose through a delta apply (one untimed round
+    first).  No steady round may full-freeze, and the resident tensors after
+    the last round equal a fresh freeze of the builder."""
+    import numpy as np
+    from cruise_control_tpu_torch.analyzer.goals.registry import DEFAULT_HARD_GOALS
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.compilesvc.buckets import ShapeBucketPolicy
+    from cruise_control_tpu_torch.model.builder import builder_from_snapshot
+    from cruise_control_tpu_torch.model.resident import ResidentModelService
+    from cruise_control_tpu_torch.model.state import state_to_numpy
+    from cruise_control_tpu_torch.obsvc.tracer import tracer
+    from cruise_control_tpu_torch.testing import random_cluster as rc
+    t0 = time.monotonic()
+    st, pl, mt = rc.generate(rc.ClusterProperties(**props), device="cpu")
+    builder = builder_from_snapshot(st, pl, mt)
+    del st, pl
+    build_s = time.monotonic() - t0
+    hard = set(DEFAULT_HARD_GOALS)
+    pad = ShapeBucketPolicy().pad_targets
+    trc = tracer()
+    trc.configure(enabled=True, ring_size=32)
+    trc.rollup(reset=True)
+    svc = ResidentModelService(device=device)
+    t0 = time.monotonic()
+    r_state, r_placement, r_meta = svc.snapshot(builder, pad)
+    full_freeze_s = time.monotonic() - t0
+    rollup = trc.rollup()
+    freeze_ms = span_ms(rollup, "model.freeze")[1]
+    transfer_ms = span_ms(rollup, "model.transfer")[1]
+    opt = GoalOptimizer(goal_names=DEFAULT_HARD_GOALS)
+    aggregate.LAUNCHES = 0
+    t0 = time.monotonic()
+    base = opt.optimizations(r_state, r_placement, r_meta)
+    sync(device)
+    base_summary = solve_summary(aggregate, base, time.monotonic() - t0, hard)
+    del base, r_state, r_placement
+    rng = np.random.default_rng(RESIDENT_MUTATION_SEED)
+    pairs = list(builder.partitions().keys())
+
+    def mutate():
+        # bench.py's drift: whole partitions' loads times U(0.85, 1.2).
+        for _ in range(mutations):
+            t, p = pairs[int(rng.integers(len(pairs)))]
+            for r in builder.partition(t, p):
+                builder.set_replica_load(t, p, r.broker_id,
+                                         r.leader_load * float(rng.uniform(0.85, 1.2)))
+
+    def propose():
+        s, p, m = svc.snapshot(builder, pad)
+        return opt.optimizations(s, p, m)
+
+    mutate()
+    propose()
+    before = svc.stats()
+    applies0 = span_ms(trc.rollup(), "model.delta_apply")
+    steady = []
+    for _ in range(rounds):
+        mutate()
+        aggregate.LAUNCHES = 0
+        t0 = time.monotonic()
+        res = propose()
+        sync(device)
+        steady.append(solve_summary(aggregate, res, time.monotonic() - t0, hard))
+        del res
+    after = svc.stats()
+    applies1 = span_ms(trc.rollup(), "model.delta_apply")
+    trc.configure(enabled=False, ring_size=32)
+    full_steady = after["fullFreezes"] - before["fullFreezes"]
+    delta_applies = after["deltaApplies"] - before["deltaApplies"]
+    apply_mean = (applies1[1] - applies0[1]) / max(applies1[0] - applies0[0], 1)
+    s, p, _ = svc.snapshot(builder, pad)
+    check(svc.stats() == after, "resident: a request with no change moved the sensors")
+    fresh, _ = builder.freeze_packed(*pad(*builder.counts()))
+    equal = packed_equal(state_to_numpy(s, p), fresh)
+    out = dict(replicas=mt.num_replicas, brokers=mt.num_brokers, padded=list(pad(*builder.counts())),
+               builder_s=build_s, full_freeze_s=full_freeze_s, freeze_ms=freeze_ms,
+               transfer_ms=transfer_ms, freeze_transfer_ms=freeze_ms + transfer_ms,
+               delta_apply_ms_mean=apply_mean,
+               freeze_transfer_reduction=(freeze_ms + transfer_ms) / max(apply_mean, 1e-9),
+               full_freezes_steady_state=full_steady, delta_applies=delta_applies,
+               rounds=rounds, mutations_per_round=mutations, base_solve=base_summary,
+               steady=steady, steady_propose_wall_s=sum(r["wall_s"] for r in steady) / rounds,
+               equal_to_fresh_freeze=equal,
+               cut="config #6's 16-lane decommission pair is left out (the whatif phase)")
+    check(full_steady == 0, f"resident: {full_steady} full freezes in the steady rounds")
+    check(delta_applies == rounds, f"resident: {delta_applies} delta applies in {rounds} rounds")
+    check(equal, "resident: the resident tensors differ from a fresh freeze")
+    return out
+
+
 def load_consistent(state, placement, agg):
     """The kernel-computed broker loads against a float64 numpy recompute
     from the placement (the verifier's LOAD_CONSISTENCY check)."""
@@ -1034,6 +1360,12 @@ def main():
     # ---- budgeted (anytime) solves, and the relaxation path.
     emit("anytime", **anytime_phase(aggregate, BASELINE3))
     emit("relax", **relax_phase(aggregate, BASELINE3, RELAX_LANES))
+
+    # ---- the load monitor at BASELINE #3, then the resident steady state
+    # (bench config #6) at 1M replicas.
+    emit("monitor", **monitor_phase(aggregate, BASELINE3))
+    emit("resident", **resident_phase(aggregate, RESIDENT, RESIDENT_MUTATIONS,
+                                      RESIDENT_ROUNDS))
 
     print(json.dumps({"kernels": [{
         "name": "broker_channel_sums",

@@ -40,6 +40,7 @@ from cruise_control_tpu_torch.analyzer.solver import (
 )
 from cruise_control_tpu_torch.common.actions import ExecutionProposal, ProposalSummary
 from cruise_control_tpu_torch.common.exceptions import OptimizationFailureError
+from cruise_control_tpu_torch.common.metrics import registry
 from cruise_control_tpu_torch.model.state import ClusterMeta, ClusterState, Placement
 from cruise_control_tpu_torch.model.stats import ClusterModelStats, compute_stats
 
@@ -49,6 +50,12 @@ LOG = logging.getLogger(__name__)
 # goal-violation weights used for the balancedness score gauge).
 _BALANCEDNESS_WEIGHT_HARD = 3.0
 _BALANCEDNESS_WEIGHT_SOFT = 1.0
+
+# Sensors of a solve cut short by its budget (the JAX package's names).
+PARTIAL_SOLVES_SENSOR = "Solver.partial-solves"
+PREEMPTIONS_SENSOR = "Solver.preemptions"
+CANCELLATIONS_SENSOR = "Solver.cancellations"
+PREEMPTION_SENSORS = (PARTIAL_SOLVES_SENSOR, PREEMPTIONS_SENSOR, CANCELLATIONS_SENSOR)
 
 
 @dataclass
@@ -238,6 +245,13 @@ class GoalOptimizer:
         self.relaxation = relaxation
         self._cache_lock = threading.Lock()
         self._cached: Dict[Tuple, OptimizerResult] = {}
+        # Materialize the preemption sensor family (and the relaxation's,
+        # where it is on) at 0: a scrape sees them before the first partial
+        # or relaxed solve.
+        for s in PREEMPTION_SENSORS:
+            registry().counter(s)
+        if relaxation is not None:
+            relax.relax_sensors()
 
     def _use_relax(self, goal: Goal, budget) -> bool:
         """The relaxation path is taken where it is on, for eligible goals,
@@ -283,6 +297,8 @@ class GoalOptimizer:
 
         goals = list(goals) if goals is not None else get_goals_by_priority(self.goal_names)
         t0 = time.monotonic()
+        reg = registry()
+        proposal_timer = reg.timer("GoalOptimizer.proposal-computation-timer")
         gctx = build_context(state, placement, meta, self.constraint, options)
         initial = placement
 
@@ -298,6 +314,12 @@ class GoalOptimizer:
         excl_move = gctx.excluded_for_replica_move
         has_broken = bool(((~state.alive & state.broker_valid).any()
                            | (excl_move & (agg0.replica_counts > 0)).any()).item())
+
+        # Provision gauges (AnomalyDetectorManager.java:173-192): a hard-goal
+        # optimization failure marks the cluster under-provisioned.
+        prov_under = reg.settable_gauge("AnomalyDetector.under-provisioned")
+        prov_right = reg.settable_gauge("AnomalyDetector.right-sized")
+        reg.settable_gauge("AnomalyDetector.over-provisioned")
 
         infos: List[GoalOptimizationInfo] = []
         priors: List[Goal] = []
@@ -334,10 +356,17 @@ class GoalOptimizer:
             # Goals that cannot relocate replicas across brokers are not
             # responsible for dead-broker evacuation.
             stranded = info.stranded_after if goal.is_hard and goal.uses_replica_moves else 0
-            check_hard_goal(goal, info, stranded)
+            try:
+                check_hard_goal(goal, info, stranded)
+            except OptimizationFailureError:
+                prov_under.set(1)
+                prov_right.set(0)
+                raise
             worsened = (info.rounds > 0 and info.metric_after
                         > info.metric_before * (1 + 1e-5) + 1e-9)
             if worsened and not has_broken:
+                prov_under.set(1)
+                prov_right.set(0)
                 raise OptimizationFailureError(
                     f"[{goal.name}] optimized result is worse than before: "
                     f"{info.metric_before:.6g} -> {info.metric_after:.6g}")
@@ -346,6 +375,8 @@ class GoalOptimizer:
                             "%.6g -> %.6g", goal.name,
                             info.metric_before, info.metric_after)
             priors.append(goal)
+        prov_under.set(0)
+        prov_right.set(1)
         partial = any(i.preempted for i in infos)
 
         # Polish pass: a later goal's moves may RE-violate an earlier SOFT
@@ -372,6 +403,16 @@ class GoalOptimizer:
                         inf.violated_brokers_after = pinfo.violated_brokers_after
                         inf.metric_after = pinfo.metric_after
 
+        # Per-goal convergence sensors: final rounds and moves of each goal.
+        for inf in infos:
+            reg.settable_gauge(f"Solver.{inf.goal_name}.rounds").set(inf.rounds)
+            reg.settable_gauge(f"Solver.{inf.goal_name}.moves").set(inf.moves_applied)
+        if partial:
+            reg.counter(PARTIAL_SOLVES_SENSOR).inc()
+            reg.counter(PREEMPTIONS_SENSOR).inc(sum(1 for inf in infos if inf.preempted))
+            if budget is not None and budget.cancelled():
+                reg.counter(CANCELLATIONS_SENSOR).inc()
+
         # `agg` is exact here: every solve returns a fresh full recompute and
         # the placement has not changed since the last one.
         vio_n = self.solver.violations(goals, gctx, placement, agg)
@@ -391,6 +432,9 @@ class GoalOptimizer:
             partial=partial,
             preempt_reason=preempt_reason if partial else None,
         )
+        proposal_timer.update_ms(result.elapsed_s * 1000.0)
+        reg.settable_gauge("AnomalyDetector.balancedness-score").set(
+            result.balancedness_score)
         # Partial results are never cached: a later request with more budget
         # (or none) must get the converged answer.
         if cache_key is not None and not partial:
@@ -456,6 +500,12 @@ class GoalOptimizer:
         seed = placement if warm_start is None else warm_start
         rounds, moves, violated, stranded, placements = self._run_lanes(
             gctx, seed, goals, num_candidates, *masks, budget)
+        preempted = rounds.shape[1] < len(goals)
+        if preempted:
+            registry().counter(PREEMPTIONS_SENSOR).inc()
+            registry().counter(PARTIAL_SOLVES_SENSOR).inc()
+            if budget is not None and budget.cancelled():
+                registry().counter(CANCELLATIONS_SENSOR).inc()
         return BatchScenarioResult(
             scenario_sets=[list(map(int, ids)) for ids in scenario_sets],
             goal_names=[g.name for g in goals[:rounds.shape[1]]],
@@ -464,7 +514,7 @@ class GoalOptimizer:
             rounds=rounds,
             stranded_after=stranded,
             final_placements=placements,
-            preempted=rounds.shape[1] < len(goals),
+            preempted=preempted,
         )
 
     def _run_lanes(self, gctx, seed: Placement, goals, num_candidates,

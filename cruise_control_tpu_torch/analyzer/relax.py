@@ -48,6 +48,7 @@ from cruise_control_tpu_torch.analyzer.context import (
     compute_aggregates,
 )
 from cruise_control_tpu_torch.analyzer.goals.base import Goal
+from cruise_control_tpu_torch.common.metrics import registry
 from cruise_control_tpu_torch.analyzer.solver import (
     _SCORE_FLOOR,
     GoalOptimizationInfo,
@@ -69,6 +70,24 @@ _MD_STEP = 1.0
 # objective asks for.
 _HOME_BIAS = 1.0
 _NEG_INF = -1e30
+
+# The relaxation's sensors (the JAX package's names).
+ATTEMPTS_SENSOR = "Solver.relax.attempts"
+FALLBACKS_SENSOR = "Solver.relax.fallbacks"
+REPAIR_ROUNDS_SENSOR = "Solver.relax.repair-rounds"
+QUALITY_DELTA_SENSOR = "Solver.relax.quality-delta"
+FRACTIONAL_MOVES_SENSOR = "Solver.relax.fractional-moves"
+
+
+def relax_sensors() -> None:
+    """Materialize the Solver.relax.* family (at 0) so a scrape sees it
+    before the first relaxed solve."""
+    reg = registry()
+    reg.counter(ATTEMPTS_SENSOR)
+    reg.counter(FALLBACKS_SENSOR)
+    reg.settable_gauge(REPAIR_ROUNDS_SENSOR)
+    reg.settable_gauge(QUALITY_DELTA_SENSOR)
+    reg.settable_gauge(FRACTIONAL_MOVES_SENSOR)
 
 
 @dataclass(frozen=True)
@@ -221,11 +240,13 @@ def optimize_goal_relaxed(solver: GoalSolver, goal: Goal, priors: Sequence[Goal]
         frac_moves.to(torch.float64), violated0.to(torch.float64),
         metric0.to(torch.float64)]).tolist()
     relax_ms = (time.monotonic() - t0) * 1000.0
+    registry().counter(ATTEMPTS_SENSOR).inc()
 
     pl2, agg2, info = solver.optimize_goal(goal, priors, gctx, rounded_pl, rounded_agg)
     regressed = (info.violated_brokers_after > int(violated0)
                  or info.metric_after > metric0 * (1 + 1e-5) + 1e-9)
     if regressed:
+        registry().counter(FALLBACKS_SENSOR).inc()
         pl2, agg2, info = solver.optimize_goal(goal, priors, gctx, placement, agg)
         info.relaxed = True
         info.relax_fallback = True
@@ -238,4 +259,8 @@ def optimize_goal_relaxed(solver: GoalSolver, goal: Goal, priors: Sequence[Goal]
     info.moves_applied += int(frac_moves)
     info.violated_brokers_before = int(violated0)
     info.metric_before = metric0
+    registry().settable_gauge(REPAIR_ROUNDS_SENSOR).set(info.repair_rounds)
+    registry().settable_gauge(FRACTIONAL_MOVES_SENSOR).set(int(frac_moves))
+    registry().settable_gauge(QUALITY_DELTA_SENSOR).set(
+        (metric0 - info.metric_after) / max(abs(metric0), 1e-9))
     return pl2, agg2, info

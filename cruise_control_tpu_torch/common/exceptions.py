@@ -7,3 +7,15 @@ class CruiseControlError(Exception):
 
 class OptimizationFailureError(CruiseControlError):
     """A hard goal could not be satisfied (reference: OptimizationFailureException)."""
+
+
+class NotEnoughValidWindowsError(CruiseControlError):
+    """Load completeness requirements unmet (reference: NotEnoughValidWindowsException)."""
+
+
+class SamplingError(CruiseControlError):
+    """Metric sampling failed (reference: MetricSamplingException)."""
+
+
+class ConfigError(CruiseControlError):
+    """Invalid configuration (reference: ConfigException)."""

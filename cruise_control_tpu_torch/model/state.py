@@ -129,6 +129,10 @@ class ClusterMeta:
     def num_hosts(self) -> int:
         return len(self.hosts)
 
+    def tp_name(self, pid: int) -> str:
+        t, p = self.partitions[pid]
+        return f"{self.topics[t]}-{p}"
+
 
 def _pad_to(n: int, multiple: int) -> int:
     if multiple <= 1:

@@ -164,3 +164,54 @@ def test_swap_body_keeps_the_same_swaps_on_cpu_and_card(cuda):
     assert torch.equal(kept["cuda"][0], kept["cpu"][0])
     k = kept["cpu"][0]
     assert torch.equal(kept["cuda"][1][k], kept["cpu"][1][k])
+
+
+def _resident_chain(device):
+    """The resident service on ``device`` through a delta chain (loads, a
+    killed broker, a structural edit): each request's packed arrays, and
+    the first snapshot's tensors, pinned across the later applies."""
+    from cruise_control_tpu_torch.model.resident import ResidentModelService
+    from cruise_control_tpu_torch.model.state import state_to_numpy
+    from cruise_control_tpu_torch.testing import deterministic as det
+
+    svc = ResidentModelService(device=device)
+    cm = det.small_cluster_model()
+    pads = lambda r, b: (16, 4)  # noqa: E731
+    pinned = svc.snapshot(cm, pads, pin=True)
+    seen = [state_to_numpy(*pinned[:2])]
+    svc.release()
+    edits = [lambda: cm.set_replica_load("T1", 0, 0, det.load(33.0, 101.5, 77.25, 13.0)),
+             lambda: cm.set_broker_state(2, alive=False),
+             lambda: (cm.delete_replica("T2", 0, 2),
+                      cm.create_replica("T2", 3, broker_id=1, index=0, is_leader=True))]
+    for edit in edits:
+        edit()
+        s, p, _ = svc.snapshot(cm, pads)
+        assert s.device.type == torch.device(device).type
+        seen.append(state_to_numpy(s, p))
+    assert svc.stats()["deltaApplies"] >= 3
+    fresh, _ = cm.freeze_packed(pad_replicas_to=16, pad_brokers_to=4)
+    return seen, pinned, fresh
+
+
+@pytest.mark.cuda
+def test_resident_delta_chain_on_the_card_equals_the_cpu(cuda):
+    """Every request of the chain gives the same arrays, bit for bit, on the
+    card and on the CPU, and the last equals a fresh freeze."""
+    card, _, fresh = _resident_chain(cuda)
+    cpu, _, _ = _resident_chain("cpu")
+    for got, want in zip(card, cpu):
+        assert all(got[k].tobytes() == want[k].tobytes() for k in want)
+    assert all(card[-1][k].tobytes() == fresh[k].tobytes() for k in fresh)
+
+
+@pytest.mark.cuda
+def test_pinned_snapshot_unchanged_by_later_applies(cuda):
+    """The applies write into copies: the first snapshot's tensors on the
+    card still hold what they held when it was pinned."""
+    from cruise_control_tpu_torch.model.state import state_to_numpy
+
+    seen, pinned, _ = _resident_chain(cuda)
+    now = state_to_numpy(*pinned[:2])
+    assert all(now[k].tobytes() == seen[0][k].tobytes() for k in now)
+    assert any(now[k].tobytes() != seen[-1][k].tobytes() for k in now)

@@ -37,11 +37,17 @@ def test_no_forbidden_import(path):
 
 def test_scan_covers_every_module_of_the_port():
     """Both checks walk the whole package: the builder, the JSON snapshot,
-    the fixtures, budgets, relaxation and lanes included."""
+    the fixtures, budgets, relaxation and lanes, the monitor, the resident
+    model and their host-side support included."""
     names = {".".join(p.relative_to(PORT).with_suffix("").parts) for p in _port_modules()}
     assert {"model.builder", "model.snapshot", "model.state", "model.cpu_model",
             "testing.deterministic", "analyzer.budget", "analyzer.relax",
-            "analyzer.optimizer", "analyzer.solver", "client.propose"} <= names
+            "analyzer.optimizer", "analyzer.solver", "client.propose",
+            "model.resident", "model.sanity", "common.metrics", "obsvc.tracer",
+            "compilesvc.buckets", "monitor.__init__", "monitor.aggregator",
+            "monitor.capacity", "monitor.load_monitor", "monitor.metadata",
+            "monitor.metric_def", "monitor.sample_store", "monitor.sampler",
+            "monitor.samples", "monitor.task_runner"} <= names
 
 
 def test_fresh_interpreter_import_pulls_no_jax():
