@@ -17,12 +17,16 @@ lanes and relaxation: the DeterministicCluster fixtures (BASELINE config
 #1), the propose from a JSON snapshot, remove- and add-broker what-if lanes
 (BASELINE config #5), budgeted solves and the relaxation path.  Then the
 load monitor (synthetic windows to a model on the card, a propose, and the
-resident model's delta apply when a broker dies) at BASELINE #3, and the
-resident steady state of bench config #6 at 1M replicas.  Each phase counts
-the kernel's launches.  Prints one JSON object per phase; the last
-line is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
-result, when CUDA is unavailable or the port's package is not beside this
-script, and whenever a check fails.
+resident model's delta apply when a broker dies) at BASELINE #3; on the
+monitor's cluster then the executor and the detectors: the goal-violation
+solves, the hard goals' solve judged by the verifier on the card and
+executed through the fake admin backend (and a share of it through the
+broker simulator's process), and a broker failure detected and fixed by a
+self-healing round; and the resident steady state of bench config #6 at 1M
+replicas.  Each phase counts the kernel's launches.  Prints one JSON object
+per phase; the last line is ``{"ok": true, "device": {...}}``.  Exits
+non-zero, printing no result, when CUDA is unavailable or the port's package
+is not beside this script, and whenever a check fails.
 """
 
 import io
@@ -94,6 +98,14 @@ MONITOR_NO_WORSEN_GOALS = ("NetworkOutboundUsageDistributionGoal", "CpuUsageDist
 # Bench config #6 (bench.py:849-1016): the resident steady state on the
 # healthy north-star cluster, its six hard goals, 64 partitions' loads
 # changed a round, three timed rounds after one untimed.
+# The executor phases on the monitor's cluster: progress polled every
+# millisecond, a bounded wait for each execution, and the share of the
+# solve's proposals sent through the broker simulator's process (with this
+# replication throttle).
+EXECUTE_POLL_S = 0.001
+EXECUTE_TIMEOUT_S = 300
+SUBPROCESS_PROPOSALS = 500
+SUBPROCESS_THROTTLE_BYTES_PER_S = 50_000_000
 RESIDENT = dict(HEALTHY, seed=3143)
 RESIDENT_MUTATIONS = 64
 RESIDENT_ROUNDS = 3
@@ -931,7 +943,9 @@ def monitor_phase(aggregate, props, device="cuda"):
     one on the hard goals, then the resident path: the kept builder and the
     resident service give the same tensors when nothing changed, and one
     delta apply, equal to a fresh freeze, when a broker dies; the default
-    stack's re-propose empties that broker."""
+    stack's re-propose empties that broker.  Returns the phase's numbers and
+    its cluster (the monitor, the fake metadata backend, the dead broker)
+    for the phases that follow."""
     from cruise_control_tpu_torch.analyzer.goals.registry import (DEFAULT_GOALS,
                                                                    DEFAULT_HARD_GOALS)
     from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
@@ -1070,6 +1084,364 @@ def monitor_phase(aggregate, props, device="cuda"):
         equal_to_fresh_freeze=equal, stats=svc.stats(), repropose=summary,
         replicas_left_on_dead_broker=left)
     trc.configure(enabled=False, ring_size=32)
+    return out, SimpleNamespace(lm=lm, backend=backend, dead=dead)
+
+
+def revive_broker(backend, broker_id):
+    """Bring a broker the monitor phase killed back to life in the fake
+    metadata backend (a restart: it keeps its replicas)."""
+    from cruise_control_tpu_torch.monitor.metadata import BrokerInfo
+    backend.brokers = [BrokerInfo(b.broker_id, b.rack, b.host, alive=True)
+                       if b.broker_id == broker_id else b for b in backend.brokers]
+
+
+def partition_placement(state, placement, meta):
+    """{(topic, partition): (sorted broker ids, leader id)} of a snapshot."""
+    import numpy as np
+    n = meta.num_replicas
+    part = state.partition[:n].cpu().numpy().tolist()
+    ids = np.asarray(meta.broker_ids)[placement.broker[:n].cpu().numpy()].tolist()
+    lead = placement.is_leader[:n].cpu().numpy().tolist()
+    out = {}
+    for p, b, is_leader in zip(part, ids, lead):
+        t, num = meta.partitions[p]
+        reps, leader = out.get((meta.topics[t], num), ((), None))
+        out[(meta.topics[t], num)] = (reps + (b,), b if is_leader else leader)
+    return {k: (tuple(sorted(reps)), leader) for k, (reps, leader) in out.items()}
+
+
+def metadata_placement(partitions):
+    """The same view of a fake backend's (or the simulator's) partitions."""
+    return {(p.topic, p.partition): (tuple(sorted(p.replicas)), p.leader)
+            for p in partitions}
+
+
+def task_counts(tracker):
+    """Tasks by state, summed over the task types."""
+    out = {}
+    for by_state in tracker.summary().values():
+        for state, n in by_state.items():
+            out[state] = out.get(state, 0) + n
+    return out
+
+
+def run_execution(executor, proposals, what):
+    """Execute in the executor's thread with a bounded join; (wall s, tasks
+    by state).  Every task must complete."""
+    t0 = time.monotonic()
+    executor.execute_proposals(proposals, wait=False)
+    executor._thread.join(timeout=EXECUTE_TIMEOUT_S)
+    wall = time.monotonic() - t0
+    check(not executor._thread.is_alive(), f"{what}: the execution did not end in "
+          f"{EXECUTE_TIMEOUT_S} s")
+    tasks = task_counts(executor.tracker)
+    check(set(tasks) == {"completed"} and tasks["completed"] >= len(proposals),
+          f"{what}: tasks {tasks} for {len(proposals)} proposals")
+    return wall, tasks
+
+
+def goal_violations(aggregate, detector, device="cuda"):
+    """One GoalViolationDetector run (a solve per anomaly-detection goal on
+    a fresh model on the card): its goals, score and kernel launches."""
+    aggregate.LAUNCHES = 0
+    t0 = time.monotonic()
+    found = detector.detect()
+    sync(device)
+    wall = time.monotonic() - t0
+    check(aggregate.LAUNCHES > 0, "detect: the goal-violation solves launched 0 times")
+    gv = found[0] if found else None
+    return dict(wall_s=wall, solves=len(detector.goal_names),
+                fixable=gv.fixable_violated_goals if gv else [],
+                unfixable=gv.unfixable_violated_goals if gv else [],
+                balancedness=detector.last_balancedness_score,
+                kernel_launches=aggregate.LAUNCHES)
+
+
+def judge(aggregate, what, state, placement, meta, final, device="cuda", **kw):
+    """``verify_placement`` of ``final`` on the tensors' device: no failure,
+    and the aggregate kernel launched."""
+    from cruise_control_tpu_torch.testing.verifier import verify_placement
+    aggregate.LAUNCHES = 0
+    t0 = time.monotonic()
+    failures = verify_placement(state, placement, meta, final, **kw)
+    sync(device)
+    ms = (time.monotonic() - t0) * 1e3
+    check(not failures, f"{what}: the verifier failed: {[str(f) for f in failures]}")
+    check(aggregate.LAUNCHES > 0, f"{what}: the verifier launched the kernel 0 times")
+    return dict(ms=ms, kernel_launches=aggregate.LAUNCHES, failures=[])
+
+
+def execute_phase(aggregate, mon, device="cuda"):
+    """The hard goals solved on the card from the monitor's model, judged by
+    the verifier on the card, every proposal executed through the executor
+    over ``FakeClusterBackend`` with a journal, then the monitor refreshed and
+    the model frozen again: each partition on the solve's replicas and
+    leader, and the verifier finds nothing.  Returns the numbers and the
+    solve (with the topology before it) for the phases that follow."""
+    from cruise_control_tpu_torch.analyzer.goals.registry import DEFAULT_HARD_GOALS
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.compilesvc.buckets import ShapeBucketPolicy
+    from cruise_control_tpu_torch.executor.backend import FakeClusterBackend
+    from cruise_control_tpu_torch.executor.executor import Executor, ExecutorConfig
+    from cruise_control_tpu_torch.executor.journal import ExecutionJournal
+    from cruise_control_tpu_torch.obsvc.execution import execution
+    pad = ShapeBucketPolicy().pad_targets
+    lm, backend = mon.lm, mon.backend
+    t0 = time.monotonic()
+    cs, cp, cm = lm.cluster_model(pad_fn=pad, device=device)
+    sync(device)
+    out = dict(replicas=cm.num_replicas, brokers=cm.num_brokers,
+               cluster_model_s=time.monotonic() - t0)
+    aggregate.LAUNCHES = 0
+    t0 = time.monotonic()
+    res = GoalOptimizer(goal_names=DEFAULT_HARD_GOALS).optimizations(cs, cp, cm)
+    sync(device)
+    out["solve"] = solve_summary(aggregate, res, time.monotonic() - t0, set(DEFAULT_HARD_GOALS))
+    check(len(res.proposals) > 0, "execute: no proposals")
+    judged = dict(before=judge(aggregate, "execute (the solve)", cs, cp, cm,
+                               res.final_placement, device, goal_names=DEFAULT_HARD_GOALS,
+                               goal_infos=res.goal_infos))
+    before = backend.fetch().partitions
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "journal.jsonl")
+        ex = Executor(FakeClusterBackend(backend, polls_to_finish=2), ExecutorConfig(
+            progress_check_interval_s=EXECUTE_POLL_S,
+            max_num_cluster_movements=len(res.proposals)))
+        ex.set_journal(ExecutionJournal(path))
+        wall, tasks = run_execution(ex, res.proposals, "execute")
+        with open(path, encoding="utf-8") as f:
+            journal = [json.loads(line) for line in f]
+    batch = execution().state_summary()["lastBatch"] or {}
+    check(journal[0]["event"] == "batch_start" and journal[-1]["event"] == "batch_end"
+          and journal[-1]["outcome"] == {"completed": tasks["completed"], "dead": 0,
+                                         "aborted": 0},
+          f"execute: the journal does not close the batch: {journal[-1]}")
+    out.update(proposals=len(res.proposals), tasks=dict(
+        completed=tasks["completed"], dead=tasks.get("dead", 0),
+        aborted=tasks.get("aborted", 0)), execution_wall_s=wall,
+        recorder_duration_ms=batch.get("durationMs"),
+        recorder_moves_per_second=batch.get("movesPerSecond"),
+        journal_lines=len(journal), executor_state=ex.state_summary())
+    t0 = time.monotonic()
+    s2, p2, m2 = lm.cluster_model(pad_fn=pad, device=device)
+    sync(device)
+    out["refreeze_s"] = time.monotonic() - t0
+    want = partition_placement(cs, res.final_placement, cm)
+    got = partition_placement(s2, p2, m2)
+    wrong = sorted(k for k in want if got.get(k) != want[k])
+    check(not wrong and set(got) == set(want),
+          f"execute: {len(wrong)} partitions differ from the solve, e.g. "
+          f"{[(k, got.get(k), want[k]) for k in wrong[:3]]}")
+    check(metadata_placement(backend.fetch().partitions) == want,
+          "execute: the metadata differs from the solve")
+    judged["after"] = judge(aggregate, "execute (the executed model)", s2, p2, m2, p2, device,
+                            goal_names=DEFAULT_HARD_GOALS)
+    out.update(partitions_equal_to_solve=len(want), verifier=judged,
+               kernel_launches=out["solve"]["kernel_launches"]
+               + judged["before"]["kernel_launches"] + judged["after"]["kernel_launches"])
+    return out, SimpleNamespace(res=res, before=before, state=cs, placement=cp, meta=cm)
+
+
+def execute_subprocess_phase(aggregate, done, limit, device="cuda"):
+    """The first ``limit`` proposals of the execute phase's solve, executed
+    through ``SubprocessClusterBackend`` against the port's broker simulator
+    in a separate process (bootstrapped with the topology before the solve),
+    with replication throttles: every task completes, the throttles are set
+    and then cleared, and the child ends where those proposals put it; the
+    placement they give is judged by the verifier on the card."""
+    import torch
+    from cruise_control_tpu_torch.executor.broker_simulator import (
+        FOLLOWER_THROTTLED_RATE, FOLLOWER_THROTTLED_REPLICAS, LEADER_THROTTLED_RATE,
+        LEADER_THROTTLED_REPLICAS)
+    from cruise_control_tpu_torch.executor.executor import Executor, ExecutorConfig
+    from cruise_control_tpu_torch.executor.subprocess_backend import SubprocessClusterBackend
+    from cruise_control_tpu_torch.model.state import Placement
+    proposals = done.res.proposals[:limit]
+    parts = [{"topic": p.topic, "partition": p.partition, "replicas": list(p.replicas),
+              "leader": p.leader} for p in done.before]
+    # The child runs ``python -m cruise_control_tpu_torch.executor.broker_simulator``.
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + [x for x in os.environ.get("PYTHONPATH", "").split(os.pathsep) if x])
+    t0 = time.monotonic()
+    backend = SubprocessClusterBackend.spawn(parts, polls_to_finish=2)
+    out = dict(proposals=len(proposals), partitions=len(parts),
+               spawn_and_bootstrap_s=time.monotonic() - t0)
+    requests = [0]
+    real = backend.request
+
+    def counted(op, **kw):
+        requests[0] += 1
+        return real(op, **kw)
+    backend.request = counted
+    try:
+        ex = Executor(backend, ExecutorConfig(
+            progress_check_interval_s=EXECUTE_POLL_S, max_num_cluster_movements=len(proposals),
+            replication_throttle_bytes_per_s=SUBPROCESS_THROTTLE_BYTES_PER_S))
+        wall, tasks = run_execution(ex, proposals, "execute_subprocess")
+        exec_requests = requests[0]
+        stats = backend.stats()
+        set_ops = [e for e in stats["config_log"] if e.get("op", "set") != "delete"]
+        deletes = [e for e in stats["config_log"] if e.get("op") == "delete"]
+        brokers = sorted({r.broker_id for p in proposals
+                          for r in p.old_replicas + p.new_replicas})
+        topics = sorted({p.topic_partition.topic for p in proposals})
+        left = [("broker", b) for b in brokers if {LEADER_THROTTLED_RATE, FOLLOWER_THROTTLED_RATE}
+                & set(backend.request("describe_configs", entity_type="broker",
+                                      entity=b)["configs"])]
+        left += [("topic", t) for t in topics if {LEADER_THROTTLED_REPLICAS,
+                                                  FOLLOWER_THROTTLED_REPLICAS}
+                 & set(backend.request("describe_configs", entity_type="topic",
+                                       entity=t)["configs"])]
+        check(set_ops and deletes and not left, f"execute_subprocess: throttles set "
+              f"{len(set_ops)}, deleted {len(deletes)}, left on {left[:5]}")
+        final = {(d["topic"], d["partition"]): (tuple(sorted(d["replicas"])), d["leader"])
+                 for d in backend.describe_topics()}
+    finally:
+        backend.close()
+    check(backend.proc.poll() is not None, "execute_subprocess: the simulator did not exit")
+    # The placement the first ``limit`` proposals give: their partitions
+    # at the solve's final placement, every other one as before.
+    st, pl, mt, fin = done.state, done.placement, done.meta, done.res.final_placement
+    index = {(mt.topics[t], num): pid for pid, (t, num) in enumerate(mt.partitions)}
+    pids = torch.tensor([index[(p.topic_partition.topic, p.topic_partition.partition)]
+                         for p in proposals])
+    moved = torch.isin(st.partition.cpu(), pids).to(st.partition.device) & st.valid
+    partial = Placement(broker=torch.where(moved, fin.broker, pl.broker),
+                        disk=torch.where(moved, fin.disk, pl.disk),
+                        is_leader=torch.where(moved, fin.is_leader, pl.is_leader))
+    want = partition_placement(st, partial, mt)
+    check(set(final) == set(want) and all(final[k][0] == want[k][0] for k in want),
+          "execute_subprocess: the simulator's replicas differ from the proposals'")
+    # Leadership moves with a reassignment only where the old leader leaves
+    # (the simulator keeps a current leader, as Kafka does); leadership-only
+    # proposals elect the proposal's leader.
+    by_tp = {(p.topic_partition.topic, p.topic_partition.partition): p for p in proposals}
+    kept = [k for k, p in by_tp.items() if final[k][1] != want[k][1]]
+    check(all(by_tp[k].has_replica_action and by_tp[k].old_leader.broker_id in
+              {r.broker_id for r in by_tp[k].new_replicas}
+              and final[k][1] == by_tp[k].old_leader.broker_id for k in kept)
+          and all(final[k][1] == want[k][1] for k in want if k not in by_tp),
+          "execute_subprocess: a leader differs from the proposals'")
+    judged = judge(aggregate, "execute_subprocess", st, pl, mt, partial, device,
+                   verifications=())
+    out.update(tasks=tasks, execution_wall_s=wall, requests=exec_requests,
+               requests_per_s=exec_requests / wall, throttle_configs_set=len(set_ops),
+               throttle_configs_deleted=len(deletes), throttles_left=len(left),
+               max_inflight=stats["max_inflight"], leaders_kept_by_reassignment=len(kept),
+               verify_ms=judged["ms"], kernel_launches=judged["kernel_launches"])
+    return out
+
+
+def detect_phase(aggregate, mon, detector, violations_before, device="cuda"):
+    """The detectors on the monitor's cluster after ``execute``: the goal-
+    violation solves again (no hard goal fixable now), one broker killed and
+    reported by ``BrokerFailureDetector``, then one ``AnomalyDetectorManager``
+    round on a second thread with self-healing on, zero thresholds and an
+    injected clock.  Its fixer stands in for the facade's: it freezes the
+    model on the card, solves the hard goals there and starts executing the
+    proposals.  The broker must end empty and the audit log must hold the
+    FIX and its FIX_STARTED outcome."""
+    import threading
+    from cruise_control_tpu_torch.analyzer.goals.registry import DEFAULT_HARD_GOALS
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.compilesvc.buckets import ShapeBucketPolicy
+    from cruise_control_tpu_torch.detector.anomalies import AnomalyType
+    from cruise_control_tpu_torch.detector.detectors import BrokerFailureDetector
+    from cruise_control_tpu_torch.detector.manager import AnomalyDetectorManager
+    from cruise_control_tpu_torch.detector.notifier import SelfHealingNotifier
+    from cruise_control_tpu_torch.executor.backend import FakeClusterBackend
+    from cruise_control_tpu_torch.executor.executor import Executor, ExecutorConfig
+    from cruise_control_tpu_torch.obsvc.audit import audit_log
+    pad = ShapeBucketPolicy().pad_targets
+    lm, backend = mon.lm, mon.backend
+    after = goal_violations(aggregate, detector, device)
+    fixable_hard = set(after["fixable"]) & set(DEFAULT_HARD_GOALS)
+    check(not fixable_hard, f"detect: hard goals still fixable after execute: {fixable_hard}")
+    out = dict(goal_violations_before_execute=violations_before,
+               goal_violations_after_execute=after)
+
+    victim = next(b.broker_id for b in backend.brokers if b.alive)
+    on_victim = sum(victim in p.replicas for p in backend.partitions)
+    check(on_victim > 0, f"detect: broker {victim} holds no replica")
+    backend.kill_broker(victim)
+    clock = {"ms": 1e9}
+    failure_detector = BrokerFailureDetector(lm.metadata_client, clock=lambda: clock["ms"])
+    found = failure_detector.detect()
+    check(len(found) == 1 and set(found[0].failed_brokers) == {victim},
+          f"detect: BrokerFailureDetector reported {[a.describe() for a in found]}")
+
+    timing = {}
+    executors = []
+
+    def fixer(anomaly):
+        """Stand-in for the facade's fix: a card solve of the hard goals on
+        the re-frozen model, then the execution of its proposals."""
+        t0 = time.monotonic()
+        st, pl, mt = lm.cluster_model(pad_fn=pad, device=device)
+        sync(device)
+        timing["freeze_s"] = time.monotonic() - t0
+        aggregate.LAUNCHES = 0
+        t0 = time.monotonic()
+        res = GoalOptimizer(goal_names=DEFAULT_HARD_GOALS).optimizations(st, pl, mt)
+        sync(device)
+        timing["solve_s"] = time.monotonic() - t0
+        timing["solve"] = solve_summary(aggregate, res, timing["solve_s"],
+                                        set(DEFAULT_HARD_GOALS))
+        ex = Executor(FakeClusterBackend(backend, polls_to_finish=2), ExecutorConfig(
+            progress_check_interval_s=EXECUTE_POLL_S,
+            max_num_cluster_movements=len(res.proposals)))
+        executors.append((ex, res.proposals, time.monotonic()))
+        ex.execute_proposals(res.proposals, wait=False)
+        return True
+
+    notifier = SelfHealingNotifier(self_healing_enabled=True, clock=lambda: clock["ms"],
+                                   broker_failure_alert_threshold_ms=0,
+                                   broker_failure_self_healing_threshold_ms=0)
+    manager = AnomalyDetectorManager({AnomalyType.BROKER_FAILURE: failure_detector},
+                                     notifier=notifier, fixer=fixer)
+    audit_log().clear()
+    t_detect = time.monotonic()
+    worker = threading.Thread(target=manager.run_detection_once, name="anomaly-round")
+    worker.start()
+    worker.join(timeout=EXECUTE_TIMEOUT_S)
+    check(not worker.is_alive(), "detect: the manager round did not end")
+    check(len(executors) == 1, "detect: the fixer did not run")
+    ex, proposals, t_exec = executors[0]
+    ex._thread.join(timeout=EXECUTE_TIMEOUT_S)
+    check(not ex._thread.is_alive(), "detect: the fix's execution did not end")
+    tasks = task_counts(ex.tracker)
+    timing["execute_s"] = time.monotonic() - t_exec
+    check(set(tasks) == {"completed"}, f"detect: the fix's tasks {tasks}")
+    t0 = time.monotonic()
+    st, pl, mt = lm.cluster_model(pad_fn=pad, device=device)
+    sync(device)
+    timing["refreeze_s"] = time.monotonic() - t0
+    detected_to_empty = time.monotonic() - t_detect
+    dead = mt.broker_index[victim]
+    left_model = int((pl.broker[st.valid] == dead).sum())
+    left_metadata = sum(victim in p.replicas for p in backend.partitions)
+    check(left_model == 0 and left_metadata == 0, f"detect: broker {victim} still holds "
+          f"{left_metadata} replicas in the metadata, {left_model} in the model")
+    entries = [e for e in audit_log().entries() if e["anomalyType"] == "BROKER_FAILURE"]
+    check(entries and entries[-1]["decision"] == "FIX"
+          and entries[-1]["outcome"] == "FIX_STARTED",
+          f"detect: the audit log holds {entries}")
+    summary = manager.state_summary()
+    out.update(killed_broker=victim, replicas_on_killed_broker=on_victim,
+               broker_failure_reported=sorted(found[0].failed_brokers),
+               fix=dict(proposals=len(proposals), tasks=tasks,
+                        solve=timing["solve"], freeze_s=timing["freeze_s"],
+                        solve_s=timing["solve_s"], execute_s=timing["execute_s"],
+                        refreeze_s=timing["refreeze_s"]),
+               detection_to_broker_empty_s=detected_to_empty,
+               solve_execute_refreeze_s=timing["solve_s"] + timing["execute_s"]
+               + timing["refreeze_s"],
+               audit=dict(decision=entries[-1]["decision"], outcome=entries[-1]["outcome"],
+                          execution_outcome=entries[-1]["executionOutcome"]),
+               manager_metrics=summary["metrics"],
+               kernel_launches=after["kernel_launches"]
+               + timing["solve"]["kernel_launches"])
+    audit_log().clear()
     return out
 
 
@@ -1363,7 +1735,23 @@ def main():
 
     # ---- the load monitor at BASELINE #3, then the resident steady state
     # (bench config #6) at 1M replicas.
-    emit("monitor", **monitor_phase(aggregate, BASELINE3))
+    out, mon = monitor_phase(aggregate, BASELINE3)
+    emit("monitor", **out)
+
+    # ---- on the monitor's cluster (its dead broker restarted): the goal-
+    # violation solves, the execution of a hard-goal solve through the fake
+    # admin backend and through the broker simulator's process, then a broker
+    # failure detected and fixed by self-healing.
+    from cruise_control_tpu_torch.detector.detectors import GoalViolationDetector
+    revive_broker(mon.backend, mon.dead)
+    detector = GoalViolationDetector(mon.lm, device="cuda")
+    violations_before = goal_violations(aggregate, detector)
+    out, done = execute_phase(aggregate, mon)
+    emit("execute", **out)
+    emit("execute_subprocess", **execute_subprocess_phase(aggregate, done,
+                                                          SUBPROCESS_PROPOSALS))
+    emit("detect", **detect_phase(aggregate, mon, detector, violations_before))
+    del mon, done, detector
     emit("resident", **resident_phase(aggregate, RESIDENT, RESIDENT_MUTATIONS,
                                       RESIDENT_ROUNDS))
 

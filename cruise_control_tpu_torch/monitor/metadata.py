@@ -12,7 +12,7 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Protocol, Tuple
+from typing import Dict, List, Optional, Protocol, Tuple
 
 
 @dataclass(frozen=True)
@@ -111,6 +111,12 @@ class FakeMetadataBackend:
         self.brokers = list(brokers)
         self.partitions = list(partitions)
         self._lock = threading.Lock()
+        # (topic, partition) -> positions in ``partitions``, for the list it
+        # was built from: a reassignment then replaces its rows in O(1)
+        # Python steps where a scan would take O(partitions) (an executor
+        # applies thousands of them against tens of thousands of partitions).
+        self._index: Dict[Tuple[str, int], List[int]] = {}
+        self._indexed: Optional[List[PartitionInfo]] = None
 
     def fetch(self) -> ClusterMetadata:
         with self._lock:
@@ -131,14 +137,15 @@ class FakeMetadataBackend:
                            new_replicas: Tuple[int, ...],
                            new_leader: Optional[int] = None) -> None:
         with self._lock:
-            out = []
-            for p in self.partitions:
-                if p.topic == topic and p.partition == partition:
-                    out.append(PartitionInfo(
-                        topic=topic, partition=partition,
-                        leader=new_leader if new_leader is not None else new_replicas[0],
-                        replicas=tuple(new_replicas),
-                        in_sync=tuple(new_replicas)))
-                else:
-                    out.append(p)
-            self.partitions = out
+            if self._indexed is not self.partitions:
+                self._index = {}
+                for i, p in enumerate(self.partitions):
+                    self._index.setdefault((p.topic, p.partition), []).append(i)
+            out = list(self.partitions)
+            for i in self._index.get((topic, partition), ()):
+                out[i] = PartitionInfo(
+                    topic=topic, partition=partition,
+                    leader=new_leader if new_leader is not None else new_replicas[0],
+                    replicas=tuple(new_replicas),
+                    in_sync=tuple(new_replicas))
+            self.partitions = self._indexed = out

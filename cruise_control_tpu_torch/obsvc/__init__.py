@@ -1,2 +1,3 @@
-"""Observability: the span tracer (the rest of the JAX package's ``obsvc/``
-waits for the port's platform layers)."""
+"""Observability: the span tracer, the self-healing audit log, the operation
+log and the execution flight recorder (the rest of the JAX package's
+``obsvc/`` waits for the port's platform layers)."""

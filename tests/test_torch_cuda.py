@@ -215,3 +215,89 @@ def test_pinned_snapshot_unchanged_by_later_applies(cuda):
     now = state_to_numpy(*pinned[:2])
     assert all(now[k].tobytes() == seen[0][k].tobytes() for k in now)
     assert any(now[k].tobytes() != seen[-1][k].tobytes() for k in now)
+
+
+def _metadata_backend(state, placement, meta):
+    """The port's fake metadata backend for a generated snapshot."""
+    from cruise_control_tpu_torch.model.builder import builder_from_snapshot
+    from cruise_control_tpu_torch.monitor.metadata import (BrokerInfo, FakeMetadataBackend,
+                                                           PartitionInfo)
+    builder = builder_from_snapshot(state, placement, meta)
+    parts = []
+    for (t, p), reps in builder.partitions().items():
+        ids = tuple(r.broker_id for r in reps)
+        leader = next((r.broker_id for r in reps if r.is_leader), None)
+        parts.append(PartitionInfo(topic=t, partition=p, leader=leader, replicas=ids,
+                                   in_sync=ids))
+    return FakeMetadataBackend([BrokerInfo(b.broker_id, rack=b.rack, host=b.host,
+                                           alive=b.alive) for b in builder.brokers()], parts)
+
+
+@pytest.mark.cuda
+def test_verifier_on_the_card_equals_the_cpu(cuda):
+    """verify_placement on the card (the aggregate kernel launches) gives the
+    same failures as on the CPU: none for the hard goals' solve of a cluster
+    with a dead broker, and the same (check, detail) list for the input
+    placement, which strands that broker's replicas."""
+    from cruise_control_tpu_torch.analyzer.goals.registry import DEFAULT_HARD_GOALS
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.testing import random_cluster as rc
+    from cruise_control_tpu_torch.testing.verifier import verify_placement
+
+    props = rc.ClusterProperties(**SMALL, dead_broker_ids=(3,))
+    st, pl, mt = rc.generate(props, device=cuda)
+    fin = GoalOptimizer(goal_names=DEFAULT_HARD_GOALS).optimizations(st, pl, mt).final_placement
+    cs, cp, cm = rc.generate(props, device="cpu")
+    fin_cpu = type(fin)(**{f: getattr(fin, f).cpu() for f in ("broker", "disk", "is_leader")})
+    for final, final_cpu in ((fin, fin_cpu), (pl, cp)):
+        aggregate.LAUNCHES = 0
+        card = verify_placement(st, pl, mt, final, goal_names=DEFAULT_HARD_GOALS)
+        torch.cuda.synchronize()
+        assert aggregate.LAUNCHES > 0
+        cpu = verify_placement(cs, cp, cm, final_cpu, goal_names=DEFAULT_HARD_GOALS)
+        assert [(f.check, f.detail) for f in card] == [(f.check, f.detail) for f in cpu]
+    assert verify_placement(st, pl, mt, fin, goal_names=DEFAULT_HARD_GOALS) == []
+    assert "DEAD_BROKERS" in [f.check for f in verify_placement(st, pl, mt, pl)]
+
+
+@pytest.mark.cuda
+def test_card_solve_executed_through_fake_backend(cuda):
+    """The hard goals solved on the card, every proposal executed through
+    FakeClusterBackend: each partition ends on the solve's replica set, led
+    by its final leader, and every task completes."""
+    from cruise_control_tpu_torch.analyzer.goals.registry import DEFAULT_HARD_GOALS
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.executor.backend import FakeClusterBackend
+    from cruise_control_tpu_torch.executor.executor import Executor, ExecutorConfig
+    from cruise_control_tpu_torch.testing import random_cluster as rc
+
+    st, pl, mt = rc.generate(rc.ClusterProperties(**SMALL, dead_broker_ids=(3,)), device=cuda)
+    metadata = _metadata_backend(st, pl, mt)
+    aggregate.LAUNCHES = 0
+    res = GoalOptimizer(goal_names=DEFAULT_HARD_GOALS).optimizations(st, pl, mt)
+    assert aggregate.LAUNCHES > 0 and res.proposals
+    ex = Executor(FakeClusterBackend(metadata, polls_to_finish=2),
+                  ExecutorConfig(progress_check_interval_s=0.001,
+                                 max_num_cluster_movements=len(res.proposals)))
+    ex.execute_proposals(res.proposals, wait=False)
+    ex._thread.join(timeout=60)
+    assert not ex._thread.is_alive()
+    summary = ex.tracker.summary()
+    assert all(set(by_state) == {"completed"} for by_state in summary.values() if by_state)
+    n = mt.num_replicas
+    broker = res.final_placement.broker.cpu().numpy()[:n]
+    leader = res.final_placement.is_leader.cpu().numpy()[:n]
+    part = st.partition.cpu().numpy()[:n]
+    want = {}
+    for r in range(n):
+        t, p = mt.partitions[part[r]]
+        reps, lead = want.setdefault((mt.topics[t], p), (set(), []))
+        reps.add(mt.broker_ids[broker[r]])
+        if leader[r]:
+            lead.append(mt.broker_ids[broker[r]])
+    got = {(p.topic, p.partition): p for p in metadata.fetch().partitions}
+    assert set(got) == set(want)
+    for tp, (reps, lead) in want.items():
+        assert set(got[tp].replicas) == reps
+        assert [got[tp].leader] == lead
+    assert not any(3 in p.replicas for p in got.values())

@@ -38,7 +38,8 @@ def test_no_forbidden_import(path):
 def test_scan_covers_every_module_of_the_port():
     """Both checks walk the whole package: the builder, the JSON snapshot,
     the fixtures, budgets, relaxation and lanes, the monitor, the resident
-    model and their host-side support included."""
+    model, the executor, the detectors, the verifier and their host-side
+    support included."""
     names = {".".join(p.relative_to(PORT).with_suffix("").parts) for p in _port_modules()}
     assert {"model.builder", "model.snapshot", "model.state", "model.cpu_model",
             "testing.deterministic", "analyzer.budget", "analyzer.relax",
@@ -47,7 +48,42 @@ def test_scan_covers_every_module_of_the_port():
             "compilesvc.buckets", "monitor.__init__", "monitor.aggregator",
             "monitor.capacity", "monitor.load_monitor", "monitor.metadata",
             "monitor.metric_def", "monitor.sample_store", "monitor.sampler",
-            "monitor.samples", "monitor.task_runner"} <= names
+            "monitor.samples", "monitor.task_runner",
+            "common.actions", "common.exceptions", "obsvc.audit", "obsvc.oplog",
+            "obsvc.execution", "utils.netsec", "executor.__init__", "executor.tasks",
+            "executor.strategies", "executor.planner", "executor.journal",
+            "executor.backend", "executor.broker_simulator",
+            "executor.subprocess_backend", "executor.executor", "detector.__init__",
+            "detector.anomalies", "detector.notifier", "detector.detectors",
+            "detector.manager", "testing.verifier", "model.ops"} <= names
+
+
+def test_broker_simulator_starts_without_torch():
+    """The admin simulator is a separate process that must start in
+    milliseconds: its import path (the executor package's ``__init__``
+    included) pulls in neither torch nor numpy."""
+    code = ("import sys\n"
+            "import cruise_control_tpu_torch.executor.broker_simulator as sim\n"
+            "s = sim.BrokerSimulator()\n"
+            "assert s.handle({'op': 'ping'})['ok']\n"
+            "heavy = sorted(m for m in ('torch', 'numpy') if m in sys.modules)\n"
+            "assert not heavy, heavy\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_executor_package_exports_resolve():
+    import cruise_control_tpu_torch.executor as ex
+
+    assert ex.Executor.__module__ == "cruise_control_tpu_torch.executor.executor"
+    assert ex.ExecutionTaskPlanner.__module__ == "cruise_control_tpu_torch.executor.planner"
+    assert sorted(ex.__all__) == sorted(["ExecutionTask", "ExecutionTaskState",
+                                         "ExecutionTaskTracker", "ExecutionTaskPlanner",
+                                         "Executor", "ExecutorState"])
+    with pytest.raises(AttributeError):
+        ex.NoSuchName
 
 
 def test_fresh_interpreter_import_pulls_no_jax():
