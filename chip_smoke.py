@@ -22,7 +22,10 @@ monitor's cluster then the executor and the detectors: the goal-violation
 solves, the hard goals' solve judged by the verifier on the card and
 executed through the fake admin backend (and a share of it through the
 broker simulator's process), and a broker failure detected and fixed by a
-self-healing round; and the resident steady state of bench config #6 at 1M
+self-healing round through the facade's fix; then the facade itself
+(``CruiseControl`` from ``CruiseControlConfig``) on a fresh monitored
+cluster: every operation, the precompute daemon, self-healing and the
+shutdown drain; and the resident steady state of bench config #6 at 1M
 replicas.  Each phase counts the kernel's launches.  Prints one JSON object
 per phase; the last line is ``{"ok": true, "device": {...}}``.  Exits
 non-zero, printing no result, when CUDA is unavailable or the port's package
@@ -104,8 +107,38 @@ MONITOR_NO_WORSEN_GOALS = ("NetworkOutboundUsageDistributionGoal", "CpuUsageDist
 # replication throttle).
 EXECUTE_POLL_S = 0.001
 EXECUTE_TIMEOUT_S = 300
+EXECUTE_MAX_MOVES = 100_000
 SUBPROCESS_PROPOSALS = 500
 SUBPROCESS_THROTTLE_BYTES_PER_S = 50_000_000
+# The facade phase: CruiseControl built from the port's CruiseControlConfig
+# on a fresh monitored BASELINE #3 cluster.  Its default goals are the hard
+# goals and replica distribution (no load-distribution goal, whose no-worsen
+# verdict the synthetic loads can fail); the precompute daemon ticks every
+# second; the first anomaly-detection round comes after operations (a)-(e),
+# self-healing is on for broker failures only, with zero grace; a delta may
+# the executor polls every millisecond with no cap on a batch.  The monitor
+# tick of (b) completes one window in which FACADE_HOT_PARTITIONS partitions
+# carry FACADE_HOT_FACTOR times their load (the synthetic sampler's loads are
+# otherwise the same every window).
+FACADE_CONFIG = {
+    "default.goals": ",".join(["RackAwareGoal", "ReplicaCapacityGoal", "DiskCapacityGoal",
+                               "NetworkInboundCapacityGoal", "NetworkOutboundCapacityGoal",
+                               "CpuCapacityGoal", "ReplicaDistributionGoal"]),
+    "anomaly.detection.goals": "RackAwareGoal",
+    "proposal.expiration.ms": "1000",
+    "anomaly.detection.interval.ms": "30000",
+    "broker.failure.alert.threshold.ms": "0",
+    "broker.failure.self.healing.threshold.ms": "0",
+    "execution.progress.check.interval.ms": "1",
+    "max.num.cluster.movements": str(EXECUTE_MAX_MOVES),
+    "solver.shutdown.grace.ms": "5000",
+    # The sensor history rings feed the SLO evaluator, which waits for the
+    # port's obsvc/slo.py.
+    "obs.history.enabled": "false",
+}
+FACADE_WAIT_S = 120
+FACADE_HOT_PARTITIONS = 64
+FACADE_HOT_FACTOR = 1.5
 RESIDENT = dict(HEALTHY, seed=3143)
 RESIDENT_MUTATIONS = 64
 RESIDENT_ROUNDS = 3
@@ -936,34 +969,19 @@ def solve_summary(aggregate, res, wall, hard):
                 balancedness=res.balancedness_score, proposals=len(res.proposals))
 
 
-def monitor_phase(aggregate, props, device="cuda"):
-    """The load monitor on a generated cluster: windows of synthetic samples
-    bootstrapped through the task runner, the model frozen onto ``device``
-    and onto the CPU (equal bit for bit), a propose on the default stack and
-    one on the hard goals, then the resident path: the kept builder and the
-    resident service give the same tensors when nothing changed, and one
-    delta apply, equal to a fresh freeze, when a broker dies; the default
-    stack's re-propose empties that broker.  Returns the phase's numbers and
-    its cluster (the monitor, the fake metadata backend, the dead broker)
-    for the phases that follow."""
-    from cruise_control_tpu_torch.analyzer.goals.registry import (DEFAULT_GOALS,
-                                                                   DEFAULT_HARD_GOALS)
-    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
-    from cruise_control_tpu_torch.common.exceptions import OptimizationFailureError
-    from cruise_control_tpu_torch.compilesvc.buckets import ShapeBucketPolicy
+def monitored_cluster(props):
+    """A generated cluster behind the port's load monitor: the fake metadata
+    backend, capacities from ``synthetic_capacity``, and
+    MONITOR_BOOTSTRAP_WINDOWS windows of synthetic samples bootstrapped
+    through the task runner (completeness checked)."""
     from cruise_control_tpu_torch.model.builder import builder_from_snapshot
-    from cruise_control_tpu_torch.model.resident import ResidentModelService
-    from cruise_control_tpu_torch.model.state import state_to_numpy
     from cruise_control_tpu_torch.monitor.capacity import FixedBrokerCapacityResolver
     from cruise_control_tpu_torch.monitor.load_monitor import (LoadMonitor,
                                                                ModelCompletenessRequirements)
     from cruise_control_tpu_torch.monitor.metadata import MetadataClient
     from cruise_control_tpu_torch.monitor.sampler import SyntheticWorkloadSampler
     from cruise_control_tpu_torch.monitor.task_runner import LoadMonitorTaskRunner
-    from cruise_control_tpu_torch.obsvc.tracer import tracer
     from cruise_control_tpu_torch.testing import random_cluster as rc
-    hard = hard_names(DEFAULT_GOALS)
-    pad = ShapeBucketPolicy().pad_targets
     st, pl, mt = rc.generate(rc.ClusterProperties(**props), device="cpu")
     backend = metadata_backend(builder_from_snapshot(st, pl, mt))
     del st, pl
@@ -979,6 +997,33 @@ def monitor_phase(aggregate, props, device="cuda"):
     bootstrap_s = time.monotonic() - t0
     check(lm.meet_completeness_requirements(ModelCompletenessRequirements(
         MONITOR_MIN_WINDOWS, MONITOR_MIN_PARTITIONS)), "monitor: completeness not met")
+    return SimpleNamespace(lm=lm, backend=backend, runner=runner, meta=mt, capacity=capacity,
+                           ingested=ingested, bootstrap_s=bootstrap_s)
+
+
+def monitor_phase(aggregate, props, device="cuda"):
+    """The load monitor on a generated cluster: windows of synthetic samples
+    bootstrapped through the task runner, the model frozen onto ``device``
+    and onto the CPU (equal bit for bit), a propose on the default stack and
+    one on the hard goals, then the resident path: the kept builder and the
+    resident service give the same tensors when nothing changed, and one
+    delta apply, equal to a fresh freeze, when a broker dies; the default
+    stack's re-propose empties that broker.  Returns the phase's numbers and
+    its cluster (the monitor, the fake metadata backend, the dead broker)
+    for the phases that follow."""
+    from cruise_control_tpu_torch.analyzer.goals.registry import (DEFAULT_GOALS,
+                                                                   DEFAULT_HARD_GOALS)
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.common.exceptions import OptimizationFailureError
+    from cruise_control_tpu_torch.compilesvc.buckets import ShapeBucketPolicy
+    from cruise_control_tpu_torch.model.resident import ResidentModelService
+    from cruise_control_tpu_torch.model.state import state_to_numpy
+    from cruise_control_tpu_torch.obsvc.tracer import tracer
+    hard = hard_names(DEFAULT_GOALS)
+    pad = ShapeBucketPolicy().pad_targets
+    cluster = monitored_cluster(props)
+    lm, backend, mt, capacity = cluster.lm, cluster.backend, cluster.meta, cluster.capacity
+    ingested, bootstrap_s = cluster.ingested, cluster.bootstrap_s
     t0 = time.monotonic()
     agg_res = lm.partition_aggregator.aggregate(-float("inf"), float("inf"))
     aggregate_ms = (time.monotonic() - t0) * 1e3
@@ -1337,13 +1382,13 @@ def detect_phase(aggregate, mon, detector, violations_before, device="cuda"):
     violation solves again (no hard goal fixable now), one broker killed and
     reported by ``BrokerFailureDetector``, then one ``AnomalyDetectorManager``
     round on a second thread with self-healing on, zero thresholds and an
-    injected clock.  Its fixer stands in for the facade's: it freezes the
-    model on the card, solves the hard goals there and starts executing the
-    proposals.  The broker must end empty and the audit log must hold the
-    FIX and its FIX_STARTED outcome."""
+    injected clock.  Its fixer is the facade's ``_fix_anomaly``: a
+    ``remove_brokers`` of the dead broker on the six hard goals, frozen and
+    solved on the card and executed over ``FakeClusterBackend``.  The broker
+    must end empty and the audit log must hold the FIX, its FIX_STARTED
+    outcome and the execution's outcome."""
     import threading
     from cruise_control_tpu_torch.analyzer.goals.registry import DEFAULT_HARD_GOALS
-    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
     from cruise_control_tpu_torch.compilesvc.buckets import ShapeBucketPolicy
     from cruise_control_tpu_torch.detector.anomalies import AnomalyType
     from cruise_control_tpu_torch.detector.detectors import BrokerFailureDetector
@@ -1351,6 +1396,7 @@ def detect_phase(aggregate, mon, detector, violations_before, device="cuda"):
     from cruise_control_tpu_torch.detector.notifier import SelfHealingNotifier
     from cruise_control_tpu_torch.executor.backend import FakeClusterBackend
     from cruise_control_tpu_torch.executor.executor import Executor, ExecutorConfig
+    from cruise_control_tpu_torch.facade import CruiseControl
     from cruise_control_tpu_torch.obsvc.audit import audit_log
     pad = ShapeBucketPolicy().pad_targets
     lm, backend = mon.lm, mon.backend
@@ -1370,52 +1416,35 @@ def detect_phase(aggregate, mon, detector, violations_before, device="cuda"):
     check(len(found) == 1 and set(found[0].failed_brokers) == {victim},
           f"detect: BrokerFailureDetector reported {[a.describe() for a in found]}")
 
-    timing = {}
-    executors = []
-
-    def fixer(anomaly):
-        """Stand-in for the facade's fix: a card solve of the hard goals on
-        the re-frozen model, then the execution of its proposals."""
-        t0 = time.monotonic()
-        st, pl, mt = lm.cluster_model(pad_fn=pad, device=device)
-        sync(device)
-        timing["freeze_s"] = time.monotonic() - t0
-        aggregate.LAUNCHES = 0
-        t0 = time.monotonic()
-        res = GoalOptimizer(goal_names=DEFAULT_HARD_GOALS).optimizations(st, pl, mt)
-        sync(device)
-        timing["solve_s"] = time.monotonic() - t0
-        timing["solve"] = solve_summary(aggregate, res, timing["solve_s"],
-                                        set(DEFAULT_HARD_GOALS))
-        ex = Executor(FakeClusterBackend(backend, polls_to_finish=2), ExecutorConfig(
-            progress_check_interval_s=EXECUTE_POLL_S,
-            max_num_cluster_movements=len(res.proposals)))
-        executors.append((ex, res.proposals, time.monotonic()))
-        ex.execute_proposals(res.proposals, wait=False)
-        return True
-
+    executor = Executor(FakeClusterBackend(backend, polls_to_finish=2), ExecutorConfig(
+        progress_check_interval_s=EXECUTE_POLL_S, max_num_cluster_movements=EXECUTE_MAX_MOVES))
+    facade = CruiseControl(lm, executor, default_goals=DEFAULT_HARD_GOALS, device=device)
     notifier = SelfHealingNotifier(self_healing_enabled=True, clock=lambda: clock["ms"],
                                    broker_failure_alert_threshold_ms=0,
                                    broker_failure_self_healing_threshold_ms=0)
     manager = AnomalyDetectorManager({AnomalyType.BROKER_FAILURE: failure_detector},
-                                     notifier=notifier, fixer=fixer)
+                                     notifier=notifier, fixer=facade._fix_anomaly)
     audit_log().clear()
+    aggregate.LAUNCHES = 0
     t_detect = time.monotonic()
     worker = threading.Thread(target=manager.run_detection_once, name="anomaly-round")
     worker.start()
     worker.join(timeout=EXECUTE_TIMEOUT_S)
     check(not worker.is_alive(), "detect: the manager round did not end")
-    check(len(executors) == 1, "detect: the fixer did not run")
-    ex, proposals, t_exec = executors[0]
-    ex._thread.join(timeout=EXECUTE_TIMEOUT_S)
-    check(not ex._thread.is_alive(), "detect: the fix's execution did not end")
-    tasks = task_counts(ex.tracker)
-    timing["execute_s"] = time.monotonic() - t_exec
+    fix_round_s = time.monotonic() - t_detect
+    fix_launches = aggregate.LAUNCHES
+    check(fix_launches > 0, "detect: the facade's fix launched the kernel 0 times")
+    check(executor._thread is not None, "detect: the facade's fix started no execution")
+    t_exec = time.monotonic()
+    executor._thread.join(timeout=EXECUTE_TIMEOUT_S)
+    check(not executor._thread.is_alive(), "detect: the fix's execution did not end")
+    tasks = task_counts(executor.tracker)
+    execute_s = time.monotonic() - t_exec
     check(set(tasks) == {"completed"}, f"detect: the fix's tasks {tasks}")
     t0 = time.monotonic()
     st, pl, mt = lm.cluster_model(pad_fn=pad, device=device)
     sync(device)
-    timing["refreeze_s"] = time.monotonic() - t0
+    refreeze_s = time.monotonic() - t0
     detected_to_empty = time.monotonic() - t_detect
     dead = mt.broker_index[victim]
     left_model = int((pl.broker[st.valid] == dead).sum())
@@ -1423,24 +1452,323 @@ def detect_phase(aggregate, mon, detector, violations_before, device="cuda"):
     check(left_model == 0 and left_metadata == 0, f"detect: broker {victim} still holds "
           f"{left_metadata} replicas in the metadata, {left_model} in the model")
     entries = [e for e in audit_log().entries() if e["anomalyType"] == "BROKER_FAILURE"]
-    check(entries and entries[-1]["decision"] == "FIX"
-          and entries[-1]["outcome"] == "FIX_STARTED",
+    check(entries and entries[-1]["decision"] == "FIX" and entries[-1]["action"] == "remove_broker"
+          and entries[-1]["outcome"] == "FIX_STARTED"
+          and (entries[-1]["executionOutcome"] or {}).get("completed") == tasks["completed"],
           f"detect: the audit log holds {entries}")
     summary = manager.state_summary()
     out.update(killed_broker=victim, replicas_on_killed_broker=on_victim,
                broker_failure_reported=sorted(found[0].failed_brokers),
-               fix=dict(proposals=len(proposals), tasks=tasks,
-                        solve=timing["solve"], freeze_s=timing["freeze_s"],
-                        solve_s=timing["solve_s"], execute_s=timing["execute_s"],
-                        refreeze_s=timing["refreeze_s"]),
+               fix=dict(fixer="CruiseControl._fix_anomaly", tasks=tasks,
+                        fix_round_s=fix_round_s, kernel_launches=fix_launches,
+                        execute_s=execute_s, refreeze_s=refreeze_s,
+                        resident=facade.resident.stats()),
                detection_to_broker_empty_s=detected_to_empty,
-               solve_execute_refreeze_s=timing["solve_s"] + timing["execute_s"]
-               + timing["refreeze_s"],
-               audit=dict(decision=entries[-1]["decision"], outcome=entries[-1]["outcome"],
+               audit=dict(decision=entries[-1]["decision"], action=entries[-1]["action"],
+                          outcome=entries[-1]["outcome"],
                           execution_outcome=entries[-1]["executionOutcome"]),
                manager_metrics=summary["metrics"],
-               kernel_launches=after["kernel_launches"]
-               + timing["solve"]["kernel_launches"])
+               kernel_launches=after["kernel_launches"] + fix_launches)
+    audit_log().clear()
+    return out
+
+
+class HotPartitionSampler:
+    """A sampler whose ``hot`` partitions carry ``factor`` times the inner
+    sampler's load: a monitor window in which a few partitions' traffic
+    grows."""
+
+    def __init__(self, inner, hot, factor):
+        self.inner, self.hot, self.factor = inner, set(hot), factor
+
+    def get_samples(self, metadata, start_ms, end_ms):
+        result = self.inner.get_samples(metadata, start_ms, end_ms)
+        for ps in result.partition_samples:
+            if (ps.topic, ps.partition) in self.hot:
+                ps.metrics *= self.factor
+        return result
+
+
+def wait_until(cond, what, timeout=FACADE_WAIT_S):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"facade: {what} within {timeout} s")
+        time.sleep(0.01)
+
+
+def facade_phase(aggregate, props, device="cuda"):
+    """``CruiseControl`` built from ``CruiseControlConfig`` on a fresh
+    monitored cluster (``FakeClusterBackend``, the resident service, the
+    precompute daemon), started with ``start_up()``:
+
+    (a) the daemon warms the proposal cache, then ``proposals()`` is a hit
+        with 0 launches;
+    (b) a monitor window is ingested; the daemon's refresh takes one delta
+        apply and no full freeze, and ``proposals()`` is a hit again;
+    (c) ``rebalance`` of the hard goals executes: every task completes and the
+        verifier finds nothing on the re-frozen model;
+    (d) ``remove_brokers([b])``: b ends empty in the metadata and the model;
+    (e) ``demote_brokers([b2])``: b2 leads nothing;
+    (f) a killed broker is found by the detector ``start_up()`` started and
+        fixed by the facade: the audit holds FIX / FIX_STARTED and the
+        execution's outcome;
+    (g) ``shutdown()`` while a solve with a deadline is in flight drains
+        within ``solver.shutdown.grace.ms``.
+
+    Each operation's kernel launches are counted over its synchronous call
+    (freeze and solve; the execution it starts runs on)."""
+    import threading
+    from cruise_control_tpu_torch import obsvc
+    from cruise_control_tpu_torch.analyzer.goals.registry import DEFAULT_GOALS
+    from cruise_control_tpu_torch.compilesvc.buckets import ShapeBucketPolicy
+    from cruise_control_tpu_torch.config import CruiseControlConfig
+    from cruise_control_tpu_torch.detector.anomalies import AnomalyType
+    from cruise_control_tpu_torch.detector.notifier import SelfHealingNotifier
+    from cruise_control_tpu_torch.executor.backend import FakeClusterBackend
+    from cruise_control_tpu_torch.executor.executor import Executor
+    from cruise_control_tpu_torch.facade import CruiseControl
+    from cruise_control_tpu_torch.model.resident import ResidentModelService
+    from cruise_control_tpu_torch.obsvc.audit import audit_log
+    from cruise_control_tpu_torch.obsvc.tracer import tracer
+    cfg = CruiseControlConfig(FACADE_CONFIG)
+    obsvc.configure(cfg)
+    pad = ShapeBucketPolicy().pad_targets
+    cluster = monitored_cluster(props)
+    lm, backend = cluster.lm, cluster.backend
+    hard = cfg.goal_names("hard.goals")
+    notifier = SelfHealingNotifier(
+        self_healing_enabled=cfg["self.healing.enabled"],
+        broker_failure_alert_threshold_ms=cfg["broker.failure.alert.threshold.ms"],
+        broker_failure_self_healing_threshold_ms=cfg["broker.failure.self.healing.threshold.ms"])
+    notifier.set_self_healing_for(AnomalyType.BROKER_FAILURE, True)
+    executor = Executor(FakeClusterBackend(backend, polls_to_finish=2), cfg.executor_config())
+    resident = ResidentModelService(enabled=cfg["model.resident.enabled"],
+                                    max_delta_slots=cfg["model.resident.max.delta.slots"],
+                                    max_delta_chain=cfg["model.resident.max.delta.chain"],
+                                    device=device)
+    cc = CruiseControl(
+        lm, executor, constraint=cfg.balancing_constraint(), default_goals=cfg.goal_names(),
+        notifier=notifier, self_healing_goals=cfg.goal_names("anomaly.detection.goals"),
+        anomaly_detection_interval_s=cfg["anomaly.detection.interval.ms"] / 1000.0,
+        proposal_precompute_interval_s=cfg["proposal.expiration.ms"] / 1000.0,
+        resident_service=resident, default_deadline_ms=cfg["solver.default.deadline.ms"],
+        shutdown_grace_ms=float(cfg["solver.shutdown.grace.ms"]), device=device)
+    out = dict(replicas=cluster.meta.num_replicas, brokers=cluster.meta.num_brokers,
+               bootstrap_s=cluster.bootstrap_s, default_goals=cc.default_goals)
+    trc = tracer()
+    trc.configure(enabled=True, ring_size=32)
+    trc.rollup(reset=True)
+    threads_before = set(threading.enumerate())
+    audit_log().clear()
+
+    tasks_before = {}
+
+    def settled():
+        return cc._precomputed_generation == lm.model_generation
+
+    def execute_and_wait(r, what, before):
+        """Wait for the execution an operation started; its tasks by state
+        (the tracker keeps every batch's, so ``before`` is subtracted)."""
+        check(r.executed, f"facade: {what} executed nothing")
+        cc.executor._thread.join(timeout=EXECUTE_TIMEOUT_S)
+        check(not cc.executor.has_ongoing_execution, f"facade: {what}: execution did not end")
+        after = task_counts(cc.executor.tracker)
+        tasks = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+        check(set(tasks) == {"completed"} and tasks["completed"] == len(
+            r.optimizer_result.proposals), f"facade: {what}: tasks {tasks}")
+        return tasks
+
+    def settle(timeout=30.0):
+        """Wait for the precompute daemon to catch up with the monitor, so
+        an operation's launch count is its own; False if it did not."""
+        deadline = time.monotonic() + timeout
+        while not settled() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        return settled()
+
+    def operation(what, call):
+        nonlocal tasks_before
+        quiet = settle()
+        tasks_before = task_counts(cc.executor.tracker)
+        aggregate.LAUNCHES = 0
+        t0 = time.monotonic()
+        r = call()
+        sync(device)
+        return r, dict(wall_s=time.monotonic() - t0, kernel_launches=aggregate.LAUNCHES,
+                       daemon_quiet=quiet, proposals=len(r.optimizer_result.proposals),
+                       violated_goals_after=r.optimizer_result.violated_goals_after)
+
+    # The resident sensors are process-wide: count from here.
+    stats_start = resident.stats()
+    aggregate.LAUNCHES = 0
+    t0 = time.monotonic()
+    cc.start_up()
+    try:
+        # (a) the daemon warms the cache; proposals() is a hit.
+        wait_until(settled, "the first precompute")
+        warm = dict(start_to_warm_s=time.monotonic() - t0, kernel_launches=aggregate.LAUNCHES,
+                    full_freezes=resident.stats()["fullFreezes"] - stats_start["fullFreezes"])
+        check(warm["kernel_launches"] > 0 and warm["full_freezes"] == 1,
+              f"facade (a): the precompute took {warm}")
+        cached = next(iter(cc.optimizer._cached.values()))
+        r, hit = operation("proposals", cc.proposals)
+        check(r.optimizer_result is cached and hit["kernel_launches"] == 0,
+              f"facade (a): proposals() was not a cache hit: {hit}")
+        warm.update(precompute_solve_s=cached.elapsed_s, proposals_hit=hit)
+        out["a_precompute"] = warm
+
+        # (b) a monitor window in which a few partitions' traffic grows; the
+        # daemon's refresh is one delta apply.
+        stats0 = resident.stats()
+        generation0 = lm.model_generation
+        end_ms = MONITOR_BOOTSTRAP_WINDOWS * MONITOR_WINDOW_MS
+        hot = [(p.topic, p.partition) for p in backend.partitions[:FACADE_HOT_PARTITIONS]]
+        runner, synthetic = cluster.runner, cluster.runner.sampler
+        runner.sampler = HotPartitionSampler(synthetic, hot, FACADE_HOT_FACTOR)
+        aggregate.LAUNCHES = 0
+        t0 = time.monotonic()
+        # Two windows: the first completes (an average's input), the second
+        # is the active one.
+        runner.bootstrap(end_ms, end_ms + 2 * MONITOR_WINDOW_MS)
+        tick_s = time.monotonic() - t0
+        runner.sampler = synthetic
+        check(lm.model_generation != generation0, "facade (b): the window moved no generation")
+        wait_until(settled, "the precompute refresh after the window")
+        refresh_s = time.monotonic() - t0
+        refresh_launches = aggregate.LAUNCHES
+        stats1 = resident.stats()
+        applies = stats1["deltaApplies"] - stats0["deltaApplies"]
+        freezes = stats1["fullFreezes"] - stats0["fullFreezes"]
+        check(applies == 1 and freezes == 0,
+              f"facade (b): the refresh took {applies} delta applies, {freezes} full freezes")
+        cached = next(iter(cc.optimizer._cached.values()))
+        r, hit = operation("proposals", cc.proposals)
+        check(r.optimizer_result is cached and hit["kernel_launches"] == 0,
+              f"facade (b): proposals() was not a cache hit: {hit}")
+        apply_n, apply_ms = span_ms(trc.rollup(), "model.delta_apply")
+        out["b_monitor_tick"] = dict(
+            hot_partitions=len(hot), ingest_s=tick_s, tick_to_refreshed_s=refresh_s,
+            refresh_kernel_launches=refresh_launches,
+            refresh_solve_s=cached.elapsed_s, delta_applies=applies, full_freezes=freezes,
+            delta_apply_ms=apply_ms / max(apply_n, 1), proposals_hit=hit)
+
+        # (c) rebalance on the hard goals, executed; the verifier on the re-freeze.
+        r, op = operation("rebalance", lambda: cc.rebalance(hard, dryrun=False))
+        t0 = time.monotonic()
+        op["tasks"] = execute_and_wait(r, "rebalance", tasks_before)
+        op["execution_s"] = time.monotonic() - t0
+        s2, p2, m2 = lm.cluster_model(pad_fn=pad, device=device)
+        op["verifier"] = judge(aggregate, "facade (c) the re-frozen model", s2, p2, m2, p2,
+                               device, goal_names=hard)
+        out["c_rebalance"] = op
+
+        # (d) remove a broker.
+        b = next(x.broker_id for x in backend.brokers
+                 if x.alive and any(x.broker_id in p.replicas for p in backend.partitions))
+        r, op = operation("remove_brokers", lambda: cc.remove_brokers([b], dryrun=False))
+        t0 = time.monotonic()
+        op["tasks"] = execute_and_wait(r, "remove_brokers", tasks_before)
+        op["execution_s"] = time.monotonic() - t0
+        s3, p3, m3 = lm.cluster_model(pad_fn=pad, device=device)
+        left_model = int((p3.broker[s3.valid] == m3.broker_index[b]).sum())
+        left_metadata = sum(b in p.replicas for p in backend.partitions)
+        check(left_model == 0 and left_metadata == 0, f"facade (d): broker {b} holds "
+              f"{left_metadata} replicas in the metadata, {left_model} in the model")
+        op.update(broker=b, replicas_left=0)
+        out["d_remove_brokers"] = op
+
+        # (e) demote a broker that leads.
+        b2 = next(x.broker_id for x in backend.brokers
+                  if x.broker_id != b and any(p.leader == x.broker_id for p in backend.partitions))
+        led = sum(p.leader == b2 for p in backend.partitions)
+        r, op = operation("demote_brokers", lambda: cc.demote_brokers([b2], dryrun=False))
+        t0 = time.monotonic()
+        op["tasks"] = execute_and_wait(r, "demote_brokers", tasks_before)
+        op["execution_s"] = time.monotonic() - t0
+        still = sum(p.leader == b2 for p in backend.partitions)
+        check(still == 0, f"facade (e): broker {b2} still leads {still} of {led} partitions")
+        op.update(broker=b2, partitions_led_before=led)
+        out["e_demote_brokers"] = op
+
+        # (f) a broker dies; the detector start_up() started finds it, and
+        # the facade's fix empties it.  The launches counted here are every
+        # thread's: the detection round, the fix and the daemon's refreshes.
+        settle()
+        victim = next(x.broker_id for x in backend.brokers if x.alive and x.broker_id not in
+                      (b, b2) and any(x.broker_id in p.replicas for p in backend.partitions))
+        on_victim = sum(victim in p.replicas for p in backend.partitions)
+        aggregate.LAUNCHES = 0
+        t_kill = time.time()
+        backend.kill_broker(victim)
+
+        def fixed():
+            return [e for e in audit_log().entries()
+                    if e["anomalyType"] == "BROKER_FAILURE" and e["outcome"] == "FIX_STARTED"]
+        wait_until(fixed, "the broker failure's fix", timeout=3 * FACADE_WAIT_S)
+        wait_until(lambda: not any(victim in p.replicas for p in backend.partitions),
+                   "the dead broker emptied", timeout=EXECUTE_TIMEOUT_S)
+        t_empty = time.time()
+        fix_launches = aggregate.LAUNCHES
+        cc.executor._thread.join(timeout=EXECUTE_TIMEOUT_S)
+        entry = fixed()[-1]
+        wait_until(lambda: fixed()[-1]["executionOutcome"] is not None,
+                   "the fix's execution outcome in the audit")
+        entry = fixed()[-1]
+        outcome = entry["executionOutcome"]
+        check(entry["decision"] == "FIX" and entry["action"] == "remove_broker"
+              and outcome["completed"] >= on_victim and outcome["dead"] == 0
+              and outcome["aborted"] == 0, f"facade (f): audit {entry}")
+        s4, p4, m4 = lm.cluster_model(pad_fn=pad, device=device)
+        left_model = int((p4.broker[s4.valid] == m4.broker_index[victim]).sum())
+        check(left_model == 0, f"facade (f): {left_model} replicas on {victim} in the model")
+        out["f_self_healing"] = dict(
+            broker=victim, replicas=on_victim, kill_to_empty_s=t_empty - t_kill,
+            detection_to_empty_s=t_empty - entry["timestampMs"] / 1000.0,
+            kernel_launches_all_threads=fix_launches,
+            audit=dict(decision=entry["decision"], action=entry["action"],
+                       outcome=entry["outcome"], execution_outcome=outcome))
+
+        # (g) shutdown() with a deadline-carrying solve in flight.
+        settle()
+        result = {}
+
+        def solve():
+            try:
+                result["r"] = cc.rebalance(DEFAULT_GOALS, dryrun=True, deadline_ms=60_000.0)
+            except Exception as e:  # noqa: BLE001 — checked below
+                result["error"] = e
+            result["returned"] = time.monotonic()
+        aggregate.LAUNCHES = 0
+        solver = threading.Thread(target=solve, name="deadline-solve")
+        solver.start()
+        wait_until(lambda: cc.active_solves() == 1 or not solver.is_alive(),
+                   "the deadline solve registered")
+    finally:
+        t0 = time.monotonic()
+        cc.shutdown()
+        shutdown_s = time.monotonic() - t0
+        trc.configure(enabled=False, ring_size=32)
+    solver.join(timeout=EXECUTE_TIMEOUT_S)
+    check("error" not in result and not solver.is_alive(),
+          f"facade (g): the in-flight solve ended with {result.get('error')}")
+    partial = result["r"].optimizer_result
+    drain_s = result["returned"] - t0
+    check(partial.partial and partial.preempt_reason == "shutdown" and cc.active_solves() == 0
+          and drain_s * 1000.0 < cc.shutdown_grace_ms,
+          f"facade (g): drained in {drain_s} s, partial {partial.partial}, "
+          f"reason {partial.preempt_reason}")
+    leaked = [t.name for t in set(threading.enumerate()) - threads_before if t.is_alive()]
+    check(not leaked, f"facade: threads left after shutdown: {leaked}")
+    out["g_shutdown"] = dict(drain_s=drain_s, shutdown_s=shutdown_s,
+                             grace_ms=cc.shutdown_grace_ms,
+                             partial=partial.partial, preempt_reason=partial.preempt_reason,
+                             goals_preempted=sum(i.preempted for i in partial.goal_infos),
+                             kernel_launches=aggregate.LAUNCHES)
+    end = resident.stats()
+    out["resident"] = dict(end, fullFreezes=end["fullFreezes"] - stats_start["fullFreezes"],
+                           deltaApplies=end["deltaApplies"] - stats_start["deltaApplies"])
+    out["state_keys"] = {k: sorted(v) for k, v in cc.state().items()}
+    out["health"] = cc.health()["status"]
     audit_log().clear()
     return out
 
@@ -1752,6 +2080,10 @@ def main():
                                                           SUBPROCESS_PROPOSALS))
     emit("detect", **detect_phase(aggregate, mon, detector, violations_before))
     del mon, done, detector
+
+    # ---- CruiseControl on a fresh monitored BASELINE #3 cluster: every
+    # operation, the precompute daemon, self-healing and the shutdown drain.
+    emit("facade", **facade_phase(aggregate, BASELINE3))
     emit("resident", **resident_phase(aggregate, RESIDENT, RESIDENT_MUTATIONS,
                                       RESIDENT_ROUNDS))
 

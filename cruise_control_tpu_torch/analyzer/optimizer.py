@@ -43,6 +43,8 @@ from cruise_control_tpu_torch.common.exceptions import OptimizationFailureError
 from cruise_control_tpu_torch.common.metrics import registry
 from cruise_control_tpu_torch.model.state import ClusterMeta, ClusterState, Placement
 from cruise_control_tpu_torch.model.stats import ClusterModelStats, compute_stats
+from cruise_control_tpu_torch.obsvc.convergence import convergence as _convergence
+from cruise_control_tpu_torch.obsvc.fidelity import fidelity as _fidelity
 
 LOG = logging.getLogger(__name__)
 
@@ -77,6 +79,10 @@ class OptimizerResult:
     # status is in goal_infos[i].preempted.
     partial: bool = False
     preempt_reason: Optional[str] = None
+    # Model-fidelity fingerprint of the snapshot this result was solved
+    # from (fidelity observatory; None when the recorder is off).  Stamped
+    # after the solve, never part of the proposal cache key.
+    fingerprint: Optional[Dict] = None
 
     @property
     def summary(self) -> ProposalSummary:
@@ -95,6 +101,7 @@ class OptimizerResult:
             "violatedGoalsBefore": self.violated_goals_before,
             "violatedGoalsAfter": self.violated_goals_after,
             "balancednessScore": self.balancedness_score,
+            "onDemandBalancednessScoreBefore": None,
             "statsBefore": self.stats_before.to_dict(),
             "statsAfter": self.stats_after.to_dict(),
             "goals": [
@@ -407,6 +414,17 @@ class GoalOptimizer:
         for inf in infos:
             reg.settable_gauge(f"Solver.{inf.goal_name}.rounds").set(inf.rounds)
             reg.settable_gauge(f"Solver.{inf.goal_name}.moves").set(inf.moves_applied)
+        _convergence().record_solve(
+            [{"goal": inf.goal_name, "curve": inf.round_curve,
+              "metric_before": inf.metric_before, "rounds": inf.rounds,
+              "moves": inf.moves_applied,
+              **({"relax_ms": round(inf.relax_ms, 3),
+                  "repair_rounds": inf.repair_rounds,
+                  "relax_fallback": inf.relax_fallback}
+                 if inf.relaxed else {})} for inf in infos],
+            kind="propose" if not partial else "propose-partial",
+            attrs={"generation": model_generation,
+                   **({"preempted": preempt_reason} if partial else {})})
         if partial:
             reg.counter(PARTIAL_SOLVES_SENSOR).inc()
             reg.counter(PREEMPTIONS_SENSOR).inc(sum(1 for inf in infos if inf.preempted))
@@ -433,6 +451,17 @@ class GoalOptimizer:
             preempt_reason=preempt_reason if partial else None,
         )
         proposal_timer.update_ms(result.elapsed_s * 1000.0)
+        # Fidelity observatory: stamp the solve-time model fingerprint onto
+        # the result and every proposal (host dicts, compare=False fields,
+        # never part of the proposal cache key).  Stamped before the cache
+        # write so a cached result keeps the fingerprint of its own model.
+        fid = _fidelity()
+        if fid.enabled:
+            fp = fid.current_fingerprint()
+            if fp is not None:
+                result.fingerprint = fp
+                for p in proposals:
+                    object.__setattr__(p, "fingerprint", fp)
         reg.settable_gauge("AnomalyDetector.balancedness-score").set(
             result.balancedness_score)
         # Partial results are never cached: a later request with more budget
@@ -506,6 +535,10 @@ class GoalOptimizer:
             registry().counter(PARTIAL_SOLVES_SENSOR).inc()
             if budget is not None and budget.cancelled():
                 registry().counter(CANCELLATIONS_SENSOR).inc()
+        # Per-lane early-exit rounds: the [S, G] rounds matrix every batch
+        # returns is the per-lane convergence story the recorder keeps.
+        _convergence().record_batch([g.name for g in goals[:rounds.shape[1]]], rounds,
+                                    warm_start=warm_start is not None)
         return BatchScenarioResult(
             scenario_sets=[list(map(int, ids)) for ids in scenario_sets],
             goal_names=[g.name for g in goals[:rounds.shape[1]]],

@@ -29,8 +29,11 @@ headroom means no subset of kept moves can invalidate another kept move's
 checks.  Anything skipped is picked up next round against fresh aggregates.
 
 The per-goal convergence loop runs on the host and syncs once per round, on
-the loop condition.  A phase with no candidate runs its tile anyway, fully
-masked (nothing is kept), instead of syncing to skip it.  Top-k is exact and
+the loop condition.  With round recording on (``trace.solver.rounds``), each
+round writes one ``ROUND_STATS_COLS`` row into a preallocated device buffer,
+copied to the host with the goal's final numbers.  A phase with no candidate
+runs its tile anyway, fully masked (nothing is kept), instead of syncing to
+skip it.  Top-k is exact and
 breaks ties by index, as ``lax.top_k`` does.
 """
 
@@ -60,9 +63,24 @@ from cruise_control_tpu_torch.analyzer.goals.base import Goal
 from cruise_control_tpu_torch.common.exceptions import OptimizationFailureError
 from cruise_control_tpu_torch.common.resources import Resource
 from cruise_control_tpu_torch.model.state import Placement
+from cruise_control_tpu_torch.obsvc.convergence import ROUND_STATS_COLS
 
 _SCORE_FLOOR = -1e29  # candidate scores below this are "not a candidate"
 _INF_COST = 3.4e38
+
+# Round-level convergence recording (trace.solver.rounds); the column layout
+# is owned by obsvc/convergence.py.
+_RECORD_ROUNDS = False
+
+
+def set_round_recording(enabled: bool) -> None:
+    """Process-wide trace.solver.rounds switch (wired by obsvc.configure)."""
+    global _RECORD_ROUNDS
+    _RECORD_ROUNDS = bool(enabled)
+
+
+def round_recording_enabled() -> bool:
+    return _RECORD_ROUNDS
 
 
 def _top_candidates(score: torch.Tensor, k: int):
@@ -86,6 +104,9 @@ class GoalOptimizationInfo:
     stranded_after: int = 0
     metric_before: float = 0.0
     metric_after: float = 0.0
+    # Per-round convergence curve, shape (rounds, ROUND_STATS_COLS) —
+    # present only when trace.solver.rounds recorded this solve.
+    round_curve: Optional[np.ndarray] = None
     # The solve's budget expired or was cancelled before this goal
     # converged (anytime result: the placement is the best found so far,
     # still feasible and prior-goal-safe; see SolveBudget).
@@ -885,6 +906,10 @@ class GoalSolver:
         # the hard-goal check declares failure.
         use_stall_cutoff = not goal.is_hard
         segmented = budget is not None and budget.segmented
+        # Round recording: one row a round into a preallocated device buffer,
+        # in the ROUND_COL_* order; no sync of its own.
+        curve_buf = (torch.zeros((self.max_rounds, ROUND_STATS_COLS), dtype=torch.float32,
+                                 device=dev) if _RECORD_ROUNDS else None)
         # The JAX package checks a segmented budget once before the first
         # segment, then after each segment that left the loop unfinished.
         stop = budget.stop_reason() if segmented else None
@@ -899,7 +924,8 @@ class GoalSolver:
                 stop = budget.stop_reason()
                 if stop is not None:
                     break
-            if rounds > 0 and rounds % self.AGG_RESYNC_ROUNDS == 0:
+            resync = rounds > 0 and rounds % self.AGG_RESYNC_ROUNDS == 0
+            if resync:
                 ag = compute_aggregates(gctx, pl)
             pl, ag, applied, violated, stranded, metric = runner(gctx, pl, ag, rounds)
             work_now = violated + stranded
@@ -910,6 +936,10 @@ class GoalSolver:
             best_metric = torch.minimum(best_metric, metric)
             applied_last = applied
             moves = moves + applied
+            if curve_buf is not None:
+                curve_buf[rounds] = torch.stack([
+                    x.to(torch.float32) for x in (applied, violated, stranded, metric)]
+                    + [torch.full((), float(resync), device=dev), stall.to(torch.float32)])
             rounds += 1
 
         if rounds > 0:
@@ -923,7 +953,16 @@ class GoalSolver:
         else:
             metric = metric0
         vals = torch.stack([x.to(torch.float64) for x in (
-            moves, violated0, violated, stranded, metric0, metric)]).tolist()
+            moves, violated0, violated, stranded, metric0, metric)])
+        curve = None
+        if curve_buf is None:
+            vals = vals.tolist()
+        else:
+            # The goal's one copy of its curve, in the same transfer as its
+            # final numbers.
+            host = torch.cat([vals, curve_buf[:rounds].reshape(-1).to(torch.float64)]).cpu()
+            curve = host[6:].numpy().astype(np.float32).reshape(rounds, ROUND_STATS_COLS)
+            vals = host[:6].tolist()
         info = GoalOptimizationInfo(
             goal_name=goal.name,
             rounds=rounds,
@@ -933,6 +972,7 @@ class GoalSolver:
             stranded_after=int(vals[3]),
             metric_before=vals[4],
             metric_after=vals[5],
+            round_curve=curve,
             preempted=stop is not None,
             preempt_reason=stop,
         )

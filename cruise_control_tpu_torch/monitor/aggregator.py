@@ -30,12 +30,10 @@ from typing import Dict, Hashable, List, Optional, Sequence
 import numpy as np
 
 from cruise_control_tpu_torch.common.exceptions import NotEnoughValidWindowsError
-from cruise_control_tpu_torch.common.metrics import registry
 from cruise_control_tpu_torch.monitor.metric_def import MetricDef
+from cruise_control_tpu_torch.obsvc.fidelity import fidelity
 
 LOG = logging.getLogger(__name__)
-
-OUT_OF_ORDER_SENSOR = "Monitor.out-of-order-samples"
 
 
 class Extrapolation(enum.Enum):
@@ -223,7 +221,7 @@ class MetricSampleAggregator:
                     LOG.debug(
                         "dropping %d out-of-order sample(s) for already-"
                         "closed windows (< %d)", n_late, closed_before)
-                    registry().counter(OUT_OF_ORDER_SENSOR).inc(n_late)
+                    fidelity().on_dropped("out_of_order", n_late)
                     ok &= ~late
             if not ok.any():
                 return 0
@@ -380,7 +378,7 @@ class MetricSampleAggregator:
             entity_valid = (~invalid).all(axis=1) & (
                 num_extrapolated <= self.max_extrapolations)
             # By-kind extrapolation counts over VALID entities (the windows
-            # that actually enter a model).
+            # that actually enter a model) — fidelity-fingerprint inputs.
             valid_rows = entity_valid[:, None]
             n_avg_available = int((some & valid_rows).sum())
             n_avg_adjacent = int((adjacent & valid_rows).sum())

@@ -34,6 +34,7 @@ from cruise_control_tpu_torch.monitor.capacity import (
     FixedBrokerCapacityResolver,
 )
 from cruise_control_tpu_torch.monitor.metadata import ClusterMetadata, MetadataClient
+from cruise_control_tpu_torch.obsvc.fidelity import fidelity
 
 
 @dataclass(frozen=True)
@@ -147,6 +148,22 @@ class LoadMonitor:
                                self.metadata_client.cluster().partitions}))
         self._model_timer = reg.timer("LoadMonitor.cluster-model-creation-timer")
 
+    def _record_fingerprint(self, metadata: ClusterMetadata, completeness,
+                            kind: str) -> None:
+        """Fidelity observatory: stamp one ModelFingerprint per model
+        freeze / resident delta-apply (host-side bookkeeping over the
+        completeness output — never touches solver inputs)."""
+        fid = fidelity()
+        if not fid.enabled:
+            return
+        fid.record_fingerprint(
+            completeness,
+            window_ms=self.partition_aggregator.window_ms,
+            dead_brokers=[b.broker_id for b in metadata.brokers
+                          if not b.alive],
+            capacity_source=type(self.capacity_resolver).__name__,
+            kind=kind)
+
     # ---------------------------------------------------------- generation
 
     @property
@@ -214,6 +231,7 @@ class LoadMonitor:
                 min_valid_windows=requirements.min_required_num_windows,
                 group_granularity=requirements.include_all_topics)
             result = self.partition_aggregator.aggregate(from_ms, to_ms, options)
+            self._record_fingerprint(metadata, result.completeness, "freeze")
             cm = self._populate(metadata, result, allow_capacity_estimation)
             if pad_fn is not None:
                 pad_replicas_to, pad_brokers_to = pad_fn(
@@ -231,6 +249,7 @@ class LoadMonitor:
             min_valid_entity_ratio=requirements.min_monitored_partitions_percentage,
             min_valid_windows=requirements.min_required_num_windows)
         result = self.partition_aggregator.aggregate(-float("inf"), to_ms, options)
+        self._record_fingerprint(metadata, result.completeness, "freeze")
         return self._populate(metadata, result,
                               kwargs.get("allow_capacity_estimation", True))
 
@@ -279,6 +298,10 @@ class LoadMonitor:
             min_valid_windows=requirements.min_required_num_windows)
         result = self.partition_aggregator.aggregate(-float("inf"), to_ms, options)
         fp = self._metadata_fingerprint(metadata, allow_capacity_estimation)
+        self._record_fingerprint(
+            metadata, result.completeness,
+            "freeze" if (self._resident_builder is None
+                         or fp != self._resident_fp) else "delta")
         if self._resident_builder is None or fp != self._resident_fp:
             cm = self._populate(metadata, result, allow_capacity_estimation)
             cm.enable_delta_tracking()

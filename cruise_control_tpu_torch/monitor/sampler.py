@@ -15,7 +15,6 @@ from typing import Dict, Iterable, List, Protocol
 
 import numpy as np
 
-from cruise_control_tpu_torch.common.metrics import registry
 from cruise_control_tpu_torch.model import cpu_model
 from cruise_control_tpu_torch.monitor import metric_def as md
 from cruise_control_tpu_torch.monitor.metadata import ClusterMetadata
@@ -25,8 +24,7 @@ from cruise_control_tpu_torch.monitor.samples import (
     PartitionMetricSample,
     RawMetricType,
 )
-
-DROPPED_INCONSISTENT_SENSOR = "Monitor.dropped-samples-inconsistent"
+from cruise_control_tpu_torch.obsvc.fidelity import fidelity
 
 
 @dataclass
@@ -101,9 +99,8 @@ class CruiseControlMetricsProcessor:
                     bm.get(RawMetricType.ALL_TOPIC_REPLICATION_BYTES_IN, 0.0),
                     bytes_in, bytes_out)
                 if cpu is None:
-                    # Inconsistent sample — dropped, as in reference, and
-                    # counted (the drop is pipeline behaviour).
-                    registry().counter(DROPPED_INCONSISTENT_SENSOR).inc()
+                    # Inconsistent sample — dropped, as in reference.
+                    fidelity().on_dropped("inconsistent")
                     continue
                 ps = PartitionMetricSample(broker_id=broker_id, topic=p.topic,
                                            partition=p.partition)

@@ -6,9 +6,7 @@ the periodic SamplingTask, bootstrap over a historical range (:134-184),
 pause/resume (:281-311), and startup sample loading; plus the fetcher fan-out
 of ``monitor/sampling/MetricFetcherManager.java:35-223`` collapsed into one
 vectorized ingest (dense-array adds make per-partition fetch threads moot).
-The JAX package's module without its model-fidelity observatory calls
-(fetch counts, liveness flaps, window closes), which wait for the port's
-``obsvc/fidelity.py``.  Time comes from an injectable ``clock``, and
+The JAX package's module.  Time comes from an injectable ``clock``, and
 ``run_sampling_once`` / ``bootstrap`` take explicit times.
 """
 
@@ -26,6 +24,7 @@ from cruise_control_tpu_torch.common.metrics import registry
 from cruise_control_tpu_torch.monitor.load_monitor import LoadMonitor
 from cruise_control_tpu_torch.monitor.sampler import MetricSampler, SamplerResult
 from cruise_control_tpu_torch.monitor.sample_store import NoopSampleStore, SampleStore
+from cruise_control_tpu_torch.obsvc.fidelity import fidelity
 
 LOG = logging.getLogger(__name__)
 
@@ -146,6 +145,13 @@ class LoadMonitorTaskRunner:
                 reg.counter("MetricFetcherManager."
                             "partition-samples-fetcher-failure-rate").inc()
                 raise
+            # Fidelity observatory: per-fetch sample counts + broker-liveness
+            # flap detection from the metadata this tick refreshed.
+            fid = fidelity()
+            fid.on_fetch(len(result.partition_samples),
+                         len(result.broker_samples))
+            fid.record_liveness({b.broker_id: bool(b.alive)
+                                 for b in metadata.brokers}, now_ms=now_ms)
             n = self._ingest(result)
             self._last_sampling_ms = now_ms
             return n
@@ -157,6 +163,7 @@ class LoadMonitorTaskRunner:
     def _ingest(self, result: SamplerResult) -> int:
         lm = self.load_monitor
         n = 0
+        before = lm.partition_aggregator.current_window
         if result.partition_samples:
             entities = [s.entity for s in result.partition_samples]
             times = np.array([s.time_ms for s in result.partition_samples])
@@ -169,6 +176,15 @@ class LoadMonitorTaskRunner:
             n += lm.broker_aggregator.add_samples(entities, times, metrics)
         self.sample_store.store_samples(result.partition_samples,
                                         result.broker_samples)
+        # Window-close detection: any window the ingest rolled the active
+        # pointer past just committed.  Bounded to the ring span so a clock
+        # jump cannot emit an unbounded event burst.
+        after = lm.partition_aggregator.current_window
+        if before >= 0 and after > before:
+            window_ms = lm.partition_aggregator.window_ms
+            span = lm.partition_aggregator.num_windows + 1
+            for w in range(max(before, after - span), after):
+                fidelity().on_window_close(w, window_ms)
         return n
 
     # ------------------------------------------------------------ bootstrap

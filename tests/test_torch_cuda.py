@@ -301,3 +301,51 @@ def test_card_solve_executed_through_fake_backend(cuda):
         assert set(got[tp].replicas) == reps
         assert [got[tp].leader] == lead
     assert not any(3 in p.replicas for p in got.values())
+
+
+def _facade_stack(device):
+    """A small monitored cluster behind the port's facade on ``device``:
+    6 brokers on 2 racks, 24 partitions at RF 2, six windows of synthetic
+    samples."""
+    from cruise_control_tpu_torch.executor.backend import FakeClusterBackend
+    from cruise_control_tpu_torch.executor.executor import Executor, ExecutorConfig
+    from cruise_control_tpu_torch.facade import CruiseControl
+    from cruise_control_tpu_torch.monitor.load_monitor import LoadMonitor
+    from cruise_control_tpu_torch.monitor.metadata import (
+        BrokerInfo, FakeMetadataBackend, MetadataClient, PartitionInfo)
+    from cruise_control_tpu_torch.monitor.sampler import SyntheticWorkloadSampler
+    from cruise_control_tpu_torch.monitor.task_runner import LoadMonitorTaskRunner
+
+    brokers = [BrokerInfo(i, rack=str(i % 2), host=f"h{i}") for i in range(6)]
+    parts = [PartitionInfo("T", p, leader=p % 3, replicas=(p % 3, (p % 3) + 1 + p % 2),
+                           in_sync=(p % 3,)) for p in range(24)]
+    backend = FakeMetadataBackend(brokers, parts)
+    lm = LoadMonitor(MetadataClient(backend, ttl_ms=0), num_windows=5, window_ms=1000,
+                     min_samples_per_window=1)
+    runner = LoadMonitorTaskRunner(lm, SyntheticWorkloadSampler(), sampling_interval_ms=1000)
+    runner.bootstrap(0, 6000)
+    ex = Executor(FakeClusterBackend(backend, polls_to_finish=1),
+                  ExecutorConfig(progress_check_interval_s=0.001))
+    return CruiseControl(lm, ex, task_runner=runner, device=device,
+                         default_goals=["RackAwareGoal", "ReplicaCapacityGoal",
+                                        "ReplicaDistributionGoal", "LeaderReplicaDistributionGoal"])
+
+
+@pytest.mark.cuda
+def test_facade_proposals_on_the_card_equal_the_cpu(cuda):
+    """CruiseControl.proposals() on the card launches the kernel and gives
+    the port's CPU run's answer on the same monitored cluster."""
+    card = _facade_stack(cuda)
+    freezes = card.resident.stats()["fullFreezes"]      # a process-wide sensor
+    aggregate.LAUNCHES = 0
+    got = card.proposals()
+    assert aggregate.LAUNCHES > 0
+    assert got.optimizer_result.final_placement.broker.is_cuda
+    assert card.resident.stats()["fullFreezes"] == freezes + 1
+    want = _facade_stack("cpu").proposals()
+    g, w = got.optimizer_result, want.optimizer_result
+    assert g.violated_goals_before == w.violated_goals_before
+    assert g.violated_goals_after == w.violated_goals_after
+    assert g.balancedness_score == w.balancedness_score
+    assert set(g.proposals) == set(w.proposals)
+    assert [i.rounds for i in g.goal_infos] == [i.rounds for i in w.goal_infos]

@@ -12,7 +12,9 @@ inputs in the same order, so it is compared with ``rel=1e-12``.
 """
 
 import importlib
+import itertools
 import logging
+import threading
 from types import SimpleNamespace
 
 import pytest
@@ -190,6 +192,26 @@ def test_flight_recorder_records_equal_jax(alpha):
     assert _scrub(tdrain) == _scrub(jdrain)
 
 
+class _ThreadPrivateIds:
+    """Stands in for an audit module's process-wide ``_IDS`` counter while
+    one thread runs a script: that thread draws 1, 2, 3, ... of its own, and
+    any other thread (a detector manager an earlier test left running) draws
+    from the original counter.  Earlier tests on the same worker advance the
+    JAX package's counter and not the port's, so without this the two
+    scripts would start from different absolute ids."""
+
+    def __init__(self, original):
+        self._original = original
+        self._owner = threading.get_ident()
+        self._own = itertools.count(1)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return next(self._own if threading.get_ident() == self._owner else self._original)
+
+
 def _audit_script(mod):
     log = mod.audit.AuditLog(maxlen=3)
     ids = [log.record("BROKER_FAILURE", {"failedBrokers": {"1": 0.0}}, "FIX"),
@@ -210,8 +232,11 @@ def _audit_script(mod):
     return first, second, log.entries(), [i - ids[0] for i in ids]
 
 
-def test_audit_log_records_equal_jax():
-    got = {root: _audit_script(_mods(PKGS[root])) for root in PKGS}
+def test_audit_log_records_equal_jax(monkeypatch):
+    mods = {root: _mods(PKGS[root]) for root in PKGS}
+    for mod in mods.values():
+        monkeypatch.setattr(mod.audit, "_IDS", _ThreadPrivateIds(mod.audit._IDS))
+    got = {root: _audit_script(mods[root]) for root in PKGS}
     assert _scrub(got["torch"][:3]) == _scrub(got["jax"][:3])
     assert got["torch"][3] == got["jax"][3]
     first = got["torch"][0]

@@ -585,7 +585,7 @@ def test_metrics_processor_equal_jax():
                                                        value=100.0 * p + b))
         return out
 
-    ctr = registry().counter(tsampler.DROPPED_INCONSISTENT_SENSOR)
+    ctr = registry().counter("Monitor.dropped-samples-inconsistent")
     before = ctr.count
     jres = jsampler.CruiseControlMetricsProcessor().process(
         _fake_cluster(pkg=jmeta).fetch(), raw(jsamples), 42.0)

@@ -23,7 +23,6 @@ from cruise_control_tpu_torch.analyzer.budget import SolveBudget
 from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
 from cruise_control_tpu_torch.common import metrics
 from cruise_control_tpu_torch.common.exceptions import OptimizationFailureError
-from cruise_control_tpu_torch.obsvc import tracer
 from cruise_control_tpu_torch.testing import deterministic as tdet
 from cruise_control_tpu_torch.testing import random_cluster as trc
 
@@ -31,8 +30,10 @@ PADS = dict(pad_replicas_to=64, pad_brokers_to=8)
 GOALS = ["ReplicaCapacityGoal", "ReplicaDistributionGoal"]
 PREEMPTION = ("Solver.partial-solves", "Solver.preemptions", "Solver.cancellations")
 RELAX = ("Solver.relax.attempts", "Solver.relax.fallbacks")
-# The JAX package's obsvc/__init__ exports a function named like the module.
+# Both packages' obsvc/__init__ export a function named like the module, so
+# the modules come by name.
 jtracer = importlib.import_module("cruise_control_tpu.obsvc.tracer")
+tracer = importlib.import_module("cruise_control_tpu_torch.obsvc.tracer")
 
 
 @pytest.fixture
