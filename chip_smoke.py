@@ -25,20 +25,29 @@ broker simulator's process), and a broker failure detected and fixed by a
 self-healing round through the facade's fix; then the facade itself
 (``CruiseControl`` from ``CruiseControlConfig``) on a fresh monitored
 cluster: every operation, the precompute daemon, self-healing and the
-shutdown drain; and the resident steady state of bench config #6 at 1M
-replicas.  Each phase counts the kernel's launches.  Prints one JSON object
+shutdown drain; then the REST server (``CruiseControlApp``, basic
+security) in front of a facade at BASELINE #3, driven over HTTP by the CLI
+client (``POST /rebalance?dryrun=true&explain=true`` among its requests),
+and the service's entry point (``python -m cruise_control_tpu_torch.main
+--demo``) as a process, stopped by SIGTERM; and the resident steady state of
+bench config #6 at 1M replicas.  Each phase counts the kernel's launches.  Prints one JSON object
 per phase; the last line is ``{"ok": true, "device": {...}}``.  Exits
 non-zero, printing no result, when CUDA is unavailable or the port's package
 is not beside this script, and whenever a check fails.
 """
 
+import base64
+import contextlib
 import io
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 from types import SimpleNamespace
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -132,13 +141,33 @@ FACADE_CONFIG = {
     "execution.progress.check.interval.ms": "1",
     "max.num.cluster.movements": str(EXECUTE_MAX_MOVES),
     "solver.shutdown.grace.ms": "5000",
-    # The sensor history rings feed the SLO evaluator, which waits for the
-    # port's obsvc/slo.py.
+    # No phase reads the sensor history rings (the SLO evaluator's input).
     "obs.history.enabled": "false",
 }
 FACADE_WAIT_S = 120
 FACADE_HOT_PARTITIONS = 64
 FACADE_HOT_FACTOR = 1.5
+# The servlet phase: FACADE_CONFIG without the precompute daemon (so each
+# request's kernel launches are its own) and without an anomaly-detection
+# round inside the phase; one ADMIN user for basic security; the default
+# goals' rebalance carries a deadline it should not reach; the profile
+# window holds one dry-run rebalance.
+SERVLET_CONFIG = dict(FACADE_CONFIG, **{"proposal.expiration.ms": "0",
+                                        "anomaly.detection.interval.ms": "600000"})
+SERVLET_USER = ("smoke-admin", "smoke-password")
+SERVLET_DEADLINE_MS = 60_000
+SERVLET_PROFILE_S = 2.0
+# The main phase: the demo service's properties (small windows, so the
+# model is ready seconds after start; the hard goals and replica
+# distribution, as in FACADE_CONFIG), how long its start and first
+# successful rebalance may take, and how soon SIGTERM must end it.
+MAIN_PROPERTIES = {
+    "partition.metrics.window.ms": "400",
+    "metric.sampling.interval.ms": "150",
+    "default.goals": FACADE_CONFIG["default.goals"],
+}
+MAIN_TIMEOUT_S = 120
+MAIN_EXIT_S = 30
 RESIDENT = dict(HEALTHY, seed=3143)
 RESIDENT_MUTATIONS = 64
 RESIDENT_ROUNDS = 3
@@ -1773,6 +1802,291 @@ def facade_phase(aggregate, props, device="cuda"):
     return out
 
 
+def http_call(aggregate, responder, spec, params, device):
+    """One request through the port's CLI client (202 polling included):
+    (body, wall s, the kernel's launches during it)."""
+    aggregate.LAUNCHES = 0
+    t0 = time.monotonic()
+    body = responder.request(spec, params)
+    sync(device)
+    return body, time.monotonic() - t0, aggregate.LAUNCHES
+
+
+def cli_call(base, argv, user=None):
+    """``cccli.main`` as a user runs it: (exit code, the JSON it printed)."""
+    from cruise_control_tpu_torch.client import cccli
+    login = ["--username", user[0], "--password", user[1]] if user else []
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cccli.main(["-a", base, *login, *argv])
+    return rc, json.loads(buf.getvalue())
+
+
+def servlet_phase(aggregate, props, device="cuda"):
+    """The service that ``main.build_app`` wires from SERVLET_CONFIG with
+    basic security, on a fresh monitored cluster, driven over HTTP by the
+    port's CLI client (``cccli.main`` where the JAX package's client has the
+    endpoint and its parameters, its ``Responder`` otherwise):
+
+    - reads: state, load, kafka_cluster_state, proposals, user_tasks,
+      health, metrics?json=true;
+    - ``rebalance?dryrun=true&explain=true`` on the hard goals, then the
+      default goals with ``deadline_ms``, then ``remove_broker?dryrun=true``;
+    - ``rebalance?dryrun=false``, ``execution_progress`` while it runs, and
+      ``stop_proposal_execution``;
+    - ``POST/GET profile`` over a window holding one dry-run rebalance.
+
+    Every body validates against the port's schemas, no hard goal is left
+    violated, every explained proposal names a requested goal and a known
+    path, the kernel launches inside every solving request, and a request
+    without credentials gets 401.  The precompute daemon is off, so each
+    request's launch count is its own."""
+    import threading
+    from cruise_control_tpu_torch.client import cccli
+    from cruise_control_tpu_torch.config import CruiseControlConfig
+    from cruise_control_tpu_torch.main import build_app
+    from cruise_control_tpu_torch.obsvc import profiler
+    from cruise_control_tpu_torch.obsvc.execution import PATHS
+    from cruise_control_tpu_torch.servlet.schemas import (ENDPOINT_SCHEMAS,
+                                                          PROFILE_STATUS_SCHEMA, validate)
+
+    tmp = tempfile.mkdtemp(prefix="servlet-phase-")
+    creds = os.path.join(tmp, "realm.properties")
+    with open(creds, "w") as f:
+        f.write(f"{SERVLET_USER[0]}: {SERVLET_USER[1]},ADMIN\n")
+    cfg = CruiseControlConfig(dict(SERVLET_CONFIG, **{
+        "trace.profile.dir": tmp, "webserver.security.enable": "true",
+        "webserver.security.provider": "basic", "webserver.auth.credentials.file": creds}))
+    cluster = monitored_cluster(props)
+    backend = cluster.backend
+    hard = cfg.goal_names("hard.goals")
+    default = cfg.goal_names()
+    threads_before = set(threading.enumerate())
+    app = build_app(cfg, port=0, device=device, metadata_backend=backend,
+                    monitor=(cluster.lm, cluster.runner))
+    cc = app.cc
+    app.start()
+    base = f"http://127.0.0.1:{app.port}"
+    auth = "Basic " + base64.b64encode(":".join(SERVLET_USER).encode()).decode()
+    responder = cccli.Responder(base, poll_interval_s=0.05, auth_header=auth)
+    out = dict(replicas=cluster.meta.num_replicas, brokers=cluster.meta.num_brokers,
+               bootstrap_s=cluster.bootstrap_s, default_goals=default)
+    requests = {}
+
+    def request(name, endpoint, method, params=None, schema=None):
+        spec = cccli.ENDPOINTS.get(endpoint) or cccli.EndpointSpec(endpoint, method)
+        check(spec.method == method, f"servlet: {endpoint} is a {spec.method}")
+        body, wall, launches = http_call(aggregate, responder, spec, params or {}, device)
+        status = body.pop("httpStatus")
+        check(status < 400, f"servlet: {name} answered {status}: {str(body)[:300]}")
+        validate(body, schema or ENDPOINT_SCHEMAS[endpoint])
+        requests[name] = dict(status=status, http_wall_s=wall, kernel_launches=launches)
+        return body
+
+    def solved(name, body, goals, explain=False):
+        result = body["result"]
+        check(not set(result["violatedGoalsAfter"]) & set(hard),
+              f"servlet: {name} left hard goals violated: {result['violatedGoalsAfter']}")
+        check(requests[name]["kernel_launches"] > 0,
+              f"servlet: {name} launched the kernel 0 times")
+        requests[name].update(replica_moves=result["numInterBrokerReplicaMovements"],
+                              leader_moves=result["numLeaderMovements"],
+                              partial=body.get("partial", False))
+        if explain:
+            paths = result["provenancePaths"]
+            bad = [p["topicPartition"] for p in result["proposals"]
+                   if (p.get("provenance") or {}).get("path") not in PATHS
+                   or p["provenance"]["goal"] not in goals]
+            check(not bad and "unknown" not in paths and result["proposals"],
+                  f"servlet: {name}: {len(bad)} proposals without a known provenance; "
+                  f"paths {paths}")
+            requests[name].update(explained_proposals=len(result["proposals"]),
+                                  provenance_paths=paths)
+
+    try:
+        # A request without credentials is refused.
+        anon = cccli.Responder(base).request(cccli.ENDPOINTS["state"], {})
+        check(anon["httpStatus"] == 401, f"servlet: anonymous state got {anon['httpStatus']}")
+        # Reads, the CLI's own way first.
+        rc, body = cli_call(base, ["state"], SERVLET_USER)
+        check(rc == 0 and body["httpStatus"] == 200, f"servlet: cccli state exited {rc}")
+        request("state", "state", "GET")
+        request("load", "load", "GET")
+        request("kafka_cluster_state", "kafka_cluster_state", "GET")
+        body = request("proposals", "proposals", "GET")
+        solved("proposals", body, default)
+        request("user_tasks", "user_tasks", "GET")
+        request("health", "health", "GET")
+        request("metrics", "metrics", "GET", {"json": "true"})
+
+        # The north star's request, explained, beside the facade's own call.
+        params = {"dryrun": "true", "explain": "true", "goals": ",".join(hard)}
+        body = request("rebalance_explain", "rebalance", "POST", params)
+        solved("rebalance_explain", body, hard, explain=True)
+        aggregate.LAUNCHES = 0
+        t0 = time.monotonic()
+        r = cc.rebalance(hard, dryrun=True)
+        sync(device)
+        facade_s = time.monotonic() - t0
+        t0 = time.perf_counter()
+        rendered = json.dumps(r.to_dict(explain=True)).encode()
+        render_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        plain = json.dumps(r.to_dict()).encode()
+        plain_render_ms = (time.perf_counter() - t0) * 1e3
+        requests["rebalance_explain"].update(
+            facade_wall_s=facade_s, facade_kernel_launches=aggregate.LAUNCHES,
+            explain_bytes=len(rendered), explain_render_ms=render_ms,
+            plain_bytes=len(plain), plain_render_ms=plain_render_ms)
+
+        params = {"dryrun": "true", "deadline_ms": str(SERVLET_DEADLINE_MS)}
+        body = request("rebalance_deadline", "rebalance", "POST", params)
+        solved("rebalance_deadline", body, default)
+        check(not body.get("partial"), "servlet: the default goals' solve came back partial")
+        victim = next(b.broker_id for b in backend.brokers
+                      if any(b.broker_id in p.replicas for p in backend.partitions))
+        body = request("remove_broker", "remove_broker", "POST",
+                       {"dryrun": "true", "brokerid": str(victim)})
+        solved("remove_broker", body, default)
+        aggregate.LAUNCHES = 0
+        t0 = time.monotonic()
+        cc.remove_brokers([victim], dryrun=True)
+        sync(device)
+        requests["remove_broker"].update(facade_wall_s=time.monotonic() - t0,
+                                         facade_kernel_launches=aggregate.LAUNCHES)
+
+        # An execution, watched and stopped over HTTP.
+        body = request("rebalance_execute", "rebalance", "POST",
+                       {"dryrun": "false", "goals": ",".join(hard)})
+        solved("rebalance_execute", body, hard)
+        check(body["executed"], "servlet: rebalance?dryrun=false executed nothing")
+        progress = request("execution_progress", "execution_progress", "GET")
+        request("stop_proposal_execution", "stop_proposal_execution", "POST")
+        check("unknown" not in (progress.get("batch") or {}).get("pathHistogram", {}),
+              f"servlet: execution_progress counts moves under unknown: {progress.get('batch')}")
+        cc.executor._thread.join(timeout=EXECUTE_TIMEOUT_S)
+        check(not cc.executor.has_ongoing_execution, "servlet: the execution did not stop")
+        tasks = task_counts(cc.executor.tracker)
+        requests["execution_progress"].update(
+            active=progress.get("active"),
+            path_histogram=(progress.get("batch") or {}).get("pathHistogram"),
+            tasks_in_view=len(progress.get("tasks") or []),
+            with_provenance=sum(1 for t in progress.get("tasks") or [] if t.get("provenance")))
+        out["execution_tasks"] = tasks
+
+        # A profile window holding one dry-run solve.  POST /profile answers
+        # 202 at once and is not polled (a re-POST would answer 409).
+        req = urllib.request.Request(
+            f"{base}/kafkacruisecontrol/profile?duration_s={SERVLET_PROFILE_S}",
+            method="POST", headers={"Authorization": auth})
+        with urllib.request.urlopen(req) as resp:
+            prof = json.load(resp)
+            check(resp.status == 202, f"servlet: POST profile answered {resp.status}")
+        validate(prof, ENDPOINT_SCHEMAS["profile"])
+        body = request("rebalance_profiled", "rebalance", "POST",
+                       {"dryrun": "true", "goals": ",".join(hard)})
+        solved("rebalance_profiled", body, hard)
+        deadline = time.monotonic() + SERVLET_PROFILE_S + 60
+        while True:
+            st = request("profile_status", "profile", "GET", schema=PROFILE_STATUS_SCHEMA)
+            if not st["busy"] or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        check(st["done"] and not st.get("error"), f"servlet: the profile capture {st}")
+        trace = os.path.join(st["trace_dir"], profiler.TRACE_FILE)
+        out["profile"] = dict(window_s=SERVLET_PROFILE_S, trace_dir=prof["trace_dir"],
+                              trace_bytes=os.path.getsize(trace))
+    finally:
+        app.stop()
+        cc.shutdown()
+    deadline = time.monotonic() + 10
+    while True:
+        leaked = [t.name for t in set(threading.enumerate()) - threads_before if t.is_alive()]
+        if not leaked or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    check(not leaked, f"servlet: threads left after shutdown: {leaked}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["requests"] = requests
+    return out
+
+
+def main_phase(timeout_s=MAIN_TIMEOUT_S, device="cuda"):
+    """``python -m cruise_control_tpu_torch.main --demo --port 0`` on the
+    card: the time to its listening line, one ``cccli rebalance --dryrun
+    true`` against it, then SIGTERM, which must end the process with exit
+    code 0 within MAIN_EXIT_S (a thread left running would hold it).  Then
+    the same command with no visible card must exit non-zero without
+    listening."""
+    import queue
+    import signal
+    import threading
+    from cruise_control_tpu_torch.analyzer.goals.registry import DEFAULT_HARD_GOALS
+    from cruise_control_tpu_torch.main import LISTENING
+    tmp = tempfile.mkdtemp(prefix="main-phase-")
+    props = os.path.join(tmp, "demo.properties")
+    with open(props, "w") as f:
+        f.write("".join(f"{k}={v}\n" for k, v in MAIN_PROPERTIES.items()))
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "cruise_control_tpu_torch.main", "--demo", "--port", "0",
+           "--config", props, "--device"]
+    out = {}
+    with open(os.path.join(tmp, "stderr.log"), "w+") as err:
+        t0 = time.monotonic()
+        proc = subprocess.Popen(cmd + [device], cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                stderr=err, text=True)
+        try:
+            lines = queue.Queue()
+            threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout],
+                             daemon=True).start()
+            try:
+                line = lines.get(timeout=timeout_s)
+            except queue.Empty:
+                line = ""
+            out["to_listening_s"] = time.monotonic() - t0
+            url = re.search(r"https?://\S+", line)
+            check(line.startswith(LISTENING) and url,
+                  f"main: no listening line ({line!r})")
+            base = url.group(0)
+            # The demo windows fill in a few seconds; until then the
+            # operation answers 500 (not enough valid windows).
+            t0 = time.monotonic()
+            while True:
+                t1 = time.monotonic()
+                rc, body = cli_call(base, ["rebalance", "--dryrun", "true"])
+                if body["httpStatus"] == 200 or time.monotonic() - t0 > timeout_s:
+                    break
+                time.sleep(0.5)
+            check(rc == 0 and body["httpStatus"] == 200,
+                  f"main: cccli rebalance exited {rc}: {str(body)[:300]}")
+            violated = set(body["result"]["violatedGoalsAfter"])
+            check(not violated & set(DEFAULT_HARD_GOALS),
+                  f"main: hard goals violated after the rebalance: {sorted(violated)}")
+            out.update(first_200_after_s=time.monotonic() - t0, request_wall_s=time.monotonic() - t1,
+                       goals=len(body["result"]["goals"]),
+                       replica_moves=body["result"]["numInterBrokerReplicaMovements"])
+            t0 = time.monotonic()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=MAIN_EXIT_S)
+            out["sigterm_to_exit_s"] = time.monotonic() - t0
+            check(rc == 0, f"main: exit code {rc} after SIGTERM")
+        except SmokeFailure as e:
+            err.seek(0)
+            raise SmokeFailure(f"{e}; the service's log ends: {err.read()[-2000:]}") from None
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        out["exit_code"] = proc.returncode
+    no_card = subprocess.run(cmd + ["cuda"], cwd=REPO, env=dict(env, CUDA_VISIBLE_DEVICES=""),
+                             capture_output=True, text=True, timeout=timeout_s)
+    check(no_card.returncode != 0 and "listening" not in no_card.stdout,
+          f"main: --device cuda without a card exited {no_card.returncode}")
+    out["no_card"] = dict(exit_code=no_card.returncode, stderr=no_card.stderr.strip()[-200:])
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def resident_phase(aggregate, props, mutations, rounds, device="cuda"):
     """Bench config #6: one full freeze seeds the resident service from a
     builder of the generated cluster; a base solve of the six hard goals;
@@ -2084,6 +2398,11 @@ def main():
     # ---- CruiseControl on a fresh monitored BASELINE #3 cluster: every
     # operation, the precompute daemon, self-healing and the shutdown drain.
     emit("facade", **facade_phase(aggregate, BASELINE3))
+
+    # ---- the REST server in front of the facade at BASELINE #3, driven over
+    # HTTP by the CLI client; then the service's own entry point as a process.
+    emit("servlet", **servlet_phase(aggregate, BASELINE3))
+    emit("main", **main_phase())
     emit("resident", **resident_phase(aggregate, RESIDENT, RESIDENT_MUTATIONS,
                                       RESIDENT_ROUNDS))
 

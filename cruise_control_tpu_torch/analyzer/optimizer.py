@@ -44,6 +44,8 @@ from cruise_control_tpu_torch.common.metrics import registry
 from cruise_control_tpu_torch.model.state import ClusterMeta, ClusterState, Placement
 from cruise_control_tpu_torch.model.stats import ClusterModelStats, compute_stats
 from cruise_control_tpu_torch.obsvc.convergence import convergence as _convergence
+from cruise_control_tpu_torch.obsvc.execution import execution as _execution
+from cruise_control_tpu_torch.obsvc.execution import path_histogram
 from cruise_control_tpu_torch.obsvc.fidelity import fidelity as _fidelity
 
 LOG = logging.getLogger(__name__)
@@ -58,6 +60,30 @@ PARTIAL_SOLVES_SENSOR = "Solver.partial-solves"
 PREEMPTIONS_SENSOR = "Solver.preemptions"
 CANCELLATIONS_SENSOR = "Solver.cancellations"
 PREEMPTION_SENSORS = (PARTIAL_SOLVES_SENSOR, PREEMPTIONS_SENSOR, CANCELLATIONS_SENSOR)
+
+
+# The JAX package gathers multi-host placements to one process here
+# (``_host_local_placement``); one card holds the whole placement, so the port
+# has no counterpart.
+
+
+def _changed_partitions(part_ids: torch.Tensor, a: Placement, b: Placement) -> set:
+    """Partition ids whose placement (broker, leadership or disk) differs
+    between two placements: the execution observatory's per-goal attribution
+    diff.  The mask is computed on the placements' device; only the changed
+    ids come back to the host."""
+    n = part_ids.shape[0]
+    changed = ((a.broker[:n] != b.broker[:n]) | (a.is_leader[:n] != b.is_leader[:n])
+               | (a.disk[:n] != b.disk[:n]))
+    return set(torch.unique(part_ids[changed]).tolist())
+
+
+def _provenance(goal_name: str, info: GoalOptimizationInfo) -> Dict:
+    """One goal pass's provenance record without its path (plain Python
+    numbers: the server renders it with ``json.dumps``)."""
+    return {"goal": goal_name, "round": int(info.rounds),
+            "costDelta": round(float(info.metric_after - info.metric_before)
+                               / max(int(info.moves_applied), 1), 6)}
 
 
 @dataclass
@@ -88,9 +114,9 @@ class OptimizerResult:
     def summary(self) -> ProposalSummary:
         return ProposalSummary.of(self.proposals)
 
-    def to_dict(self) -> Dict:
+    def to_dict(self, explain: bool = False) -> Dict:
         s = self.summary
-        return {
+        d = {
             **({"partial": True, "preemptReason": self.preempt_reason}
                if self.partial else {}),
             "numInterBrokerReplicaMovements": s.num_inter_broker_replica_movements,
@@ -118,6 +144,14 @@ class OptimizerResult:
                 for g in self.goal_infos
             ],
         }
+        if explain:
+            # ?explain=true: per-proposal provenance (goal / path / solve
+            # round / cost delta) plus the path histogram rollup and the
+            # model-fidelity fingerprint the solve was decided on.
+            d["proposals"] = [p.to_dict(explain=True) for p in self.proposals]
+            d["provenancePaths"] = path_histogram(self.proposals)
+            d["modelFingerprint"] = self.fingerprint
+        return d
 
 
 def balancedness_score(goal_infos: Sequence[GoalOptimizationInfo],
@@ -332,6 +366,16 @@ class GoalOptimizer:
         priors: List[Goal] = []
         agg = agg0
         preempt_reason = None
+        # Execution observatory: per-partition move provenance from the
+        # placements bracketing each goal (and polish) pass.  Off the
+        # solver's path: the same device work with the recorder on or off;
+        # each pass adds one diff and one copy of the changed partition ids.
+        exec_rec = _execution()
+        prov_map: Optional[Dict[int, dict]] = None
+        if exec_rec.enabled:
+            prov_map = {}
+            part_ids = state.partition[:meta.num_replicas]
+            prev = placement
         for gi, goal in enumerate(goals):
             # Goal-boundary budget check; goals never started are recorded
             # as preempted with zero rounds.
@@ -354,6 +398,25 @@ class GoalOptimizer:
                 placement, agg, info = self.solver.optimize_goal(
                     goal, priors, gctx, placement, agg, budget=budget)
             infos.append(info)
+            rounded, info.rounded = info.rounded, None
+            if prov_map is not None:
+                # Attribute this goal's placement changes.  A relaxed pass
+                # diffs three ways through its post-rounding placement:
+                # changed only before it = relax, only after = greedy repair,
+                # both = rounding.  Everything else (plain greedy, fallback)
+                # is one greedy diff.  The last writer wins across goals.
+                base = _provenance(info.goal_name, info)
+                if rounded is not None:
+                    pre = _changed_partitions(part_ids, prev, rounded)
+                    post = _changed_partitions(part_ids, rounded, placement)
+                    for p in pre | post:
+                        path = ("rounding" if p in pre and p in post
+                                else "relax" if p in pre else "repair")
+                        prov_map[p] = dict(base, path=path)
+                else:
+                    for p in _changed_partitions(part_ids, prev, placement):
+                        prov_map[p] = dict(base, path="greedy")
+                prev = placement
             if info.preempted:
                 # A mid-goal preemption: the placement is the best found so
                 # far.  The hard-goal and no-worsen verdicts judge converged
@@ -403,6 +466,13 @@ class GoalOptimizer:
             for goal in revio:
                 placement, agg, pinfo = self.solver.optimize_goal(
                     goal, [p for p in goals if p is not goal], gctx, placement, agg)
+                if prov_map is not None:
+                    # Polish re-solves are greedy repairs of a soft goal's
+                    # band; their moves overwrite earlier attribution.
+                    base = _provenance(goal.name, pinfo)
+                    for p in _changed_partitions(part_ids, prev, placement):
+                        prov_map[p] = dict(base, path="greedy")
+                    prev = placement
                 for inf in infos:
                     if inf.goal_name == goal.name:
                         inf.rounds += pinfo.rounds
@@ -414,7 +484,7 @@ class GoalOptimizer:
         for inf in infos:
             reg.settable_gauge(f"Solver.{inf.goal_name}.rounds").set(inf.rounds)
             reg.settable_gauge(f"Solver.{inf.goal_name}.moves").set(inf.moves_applied)
-        _convergence().record_solve(
+        solve_id = _convergence().record_solve(
             [{"goal": inf.goal_name, "curve": inf.round_curve,
               "metric_before": inf.metric_before, "rounds": inf.rounds,
               "moves": inf.moves_applied,
@@ -436,7 +506,13 @@ class GoalOptimizer:
         vio_n = self.solver.violations(goals, gctx, placement, agg)
         violated_after = [g.name for g, v in zip(goals, vio_n) if v > 0]
         stats_after = compute_stats(state, placement, self.constraint.balance_threshold)
-        proposals = diff_proposals(state, initial, placement, meta)
+        if prov_map is not None:
+            # The convergence recorder's solve id exists only now (it records
+            # after the goal loop), so the records back-reference it here;
+            # None when round recording is off.
+            for rec in prov_map.values():
+                rec["solveId"] = solve_id
+        proposals = diff_proposals(state, initial, placement, meta, provenance=prov_map)
         result = OptimizerResult(
             proposals=proposals,
             goal_infos=infos,

@@ -9,7 +9,7 @@ Host-side and vectorized with numpy: one pass over the changed-partition set.
 
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -27,8 +27,13 @@ def diff_proposals(
     initial: Placement,
     final: Placement,
     meta: ClusterMeta,
+    provenance: Optional[Dict[int, dict]] = None,
 ) -> List[ExecutionProposal]:
-    """Proposals for every partition whose placement or leadership changed."""
+    """Proposals for every partition whose placement or leadership changed.
+
+    ``provenance`` (execution observatory) maps partition id → the
+    optimizer's per-move provenance record; when given, each proposal is
+    stamped with its partition's record."""
     n = meta.num_replicas
 
     def host(t):
@@ -103,5 +108,6 @@ def diff_proposals(
             old_leader=old_leader,
             old_replicas=tuple(old_list),
             new_replicas=tuple(new_list),
+            provenance=provenance.get(p) if provenance else None,
         ))
     return proposals

@@ -246,6 +246,8 @@ def optimize_goal_relaxed(solver: GoalSolver, goal: Goal, priors: Sequence[Goal]
     regressed = (info.violated_brokers_after > int(violated0)
                  or info.metric_after > metric0 * (1 + 1e-5) + 1e-9)
     if regressed:
+        # The relaxation hurt this goal: discard it (the fallback pass is
+        # plain greedy, and its info carries no rounded placement).
         registry().counter(FALLBACKS_SENSOR).inc()
         pl2, agg2, info = solver.optimize_goal(goal, priors, gctx, placement, agg)
         info.relaxed = True
@@ -254,6 +256,7 @@ def optimize_goal_relaxed(solver: GoalSolver, goal: Goal, priors: Sequence[Goal]
         return pl2, agg2, info
     info.relaxed = True
     info.relax_ms = relax_ms
+    info.rounded = rounded_pl
     info.repair_rounds = info.rounds
     info.relax_moves = int(frac_moves)
     info.moves_applied += int(frac_moves)

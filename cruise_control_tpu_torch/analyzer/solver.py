@@ -126,6 +126,11 @@ class GoalOptimizationInfo:
     # Moves the rounding waves kept (the JAX package's
     # Solver.relax.fractional-moves gauge).
     relax_moves: int = 0
+    # The post-rounding placement of a relaxed pass that kept its result
+    # (None otherwise): the optimizer's provenance diff splits relax from
+    # repair moves through it, and drops it after the goal.  It belongs to
+    # this solve alone, so concurrent solves cannot mix their placements.
+    rounded: Optional[Placement] = None
 
     @property
     def succeeded(self) -> bool:

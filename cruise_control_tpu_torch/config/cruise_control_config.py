@@ -319,8 +319,9 @@ def _trace_def() -> ConfigDef:
              doc="bounded length of the self-healing audit log surfaced in "
                  "the AnomalyDetectorState substate of GET /state")
     d.define("trace.profile.dir", ConfigType.STRING, "",
-             doc="root directory for POST /profile TensorBoard trace dirs; "
-                 "empty = <tmpdir>/cruise_control_tpu_profiles")
+             doc="root directory for POST /profile captures, one "
+                 "profile-<epoch_ms>/trace.json Chrome trace (torch.profiler) "
+                 "each; empty = <tmpdir>/cruise_control_tpu_torch_profiles")
     d.define("trace.solver.rounds", ConfigType.BOOLEAN, False,
              doc="record per-round solver convergence curves (applied moves, "
                  "violated/stranded counts, goal metric, resync/stall flags) "
@@ -639,19 +640,16 @@ def _webserver_def() -> ConfigDef:
 
 
 # Keys (or key prefixes ending in ".") whose consumer is not ported yet, with
-# the ROADMAP Queue 1 item that ports it: 2 = the servlet, 3 = the reporter,
-# fetchers, sample store, SLO evaluator and fuzz service, 5 = the compile
-# service, device-memory ledger and profiler.
+# the ROADMAP Queue 1 item that ports it: 3 = the reporter, fetchers,
+# Prometheus sampler, maintenance transports and fuzz service, 5 = the compile
+# service and device-memory ledger.  ``main.build_app`` raises ConfigError
+# where a value asks for one of the missing modules.
 INERT_UNTIL: Dict[str, int] = {
-    "compile.": 5, "memory.": 5, "trace.profile.dir": 5,
-    "fuzz.": 3, "slo.": 3, "solver.relaxation.tolerance": 3,
+    "compile.": 5, "memory.": 5,
+    "fuzz.": 3, "solver.relaxation.tolerance": 3,
     "metric.sampler.mode": 3, "metrics.transport.": 3, "num.metric.fetchers": 3,
-    "prometheus.server.endpoint": 3, "sample.store.": 3,
+    "prometheus.server.endpoint": 3,
     "maintenance.event.transport.": 3, "maintenance.event.offsets.path": 3,
-    "webserver.": 2, "max.active.user.tasks": 2,
-    "completed.user.task.retention.time.ms": 2,
-    "two.step.verification.enabled": 2, "servlet.user.task.timeout.ms": 2,
-    "resilience.health.retry.after.s": 2,
 }
 
 

@@ -14,10 +14,8 @@ The JAX package's ``facade.py``, with every solve on the facade's ``device``
 (the card unless the caller asks for the CPU).  Parts that wait for other
 ROADMAP Queue 1 items: the compile service's warmup daemon (item 5; shape
 buckets come from ``compilesvc/buckets.ShapeBucketPolicy``), the device-memory
-ledger's ``memoryState`` (item 5), the solver's device failover (item 5: a
-CUDA error in a solve raises, and nothing reruns it on the CPU),
-``explain=True`` (item 2) and the SLO detector (item 3; ``slo_detector`` stays
-an optional argument).
+ledger's ``memoryState`` (item 5) and the solver's device failover (item 5: a
+CUDA error in a solve raises, and nothing reruns it on the CPU).
 """
 
 from __future__ import annotations
@@ -118,14 +116,14 @@ class OperationResult:
     # configured anomaly.model.* staleness threshold at solve time.
     model_stale: bool = False
 
-    def to_dict(self) -> Dict:
+    def to_dict(self, explain: bool = False) -> Dict:
         d = {"dryrun": self.dryrun, "executed": self.executed, "info": self.info}
         if self.partial:
             d["partial"] = True
         if self.model_stale:
             d["modelStale"] = True
         if self.optimizer_result is not None:
-            d["result"] = self.optimizer_result.to_dict()
+            d["result"] = self.optimizer_result.to_dict(explain=explain)
         return d
 
 
@@ -591,9 +589,14 @@ class CruiseControl:
                 state, placement, meta = self._freeze_bucketed(
                     self._build_enriched(requirements, model_mutator))
 
+            # A request's own goal list gets its own optimizer on the shared
+            # solver and relaxation settings (the JAX package's process-wide
+            # default solver and relaxation switch).
             optimizer = (self.optimizer if goals == self.default_goals
                          else GoalOptimizer(constraint=self.constraint,
-                                            goal_names=goals))
+                                            goal_names=goals,
+                                            solver=self.optimizer.solver,
+                                            relaxation=self.optimizer.relaxation))
             generation = (self.load_monitor.model_generation
                           if use_cached and model_mutator is None else None)
             result = optimizer.optimizations(
@@ -758,7 +761,9 @@ class CruiseControl:
             goal_names = list(goals or self.default_goals)
             optimizer = (self.optimizer if goal_names == self.default_goals
                          else GoalOptimizer(constraint=self.constraint,
-                                            goal_names=goal_names))
+                                            goal_names=goal_names,
+                                            solver=self.optimizer.solver,
+                                            relaxation=self.optimizer.relaxation))
             # Warm start: when the base cluster was already solved this
             # generation, lanes begin from that balanced placement instead of
             # the raw snapshot — each lane only repairs its own removal's

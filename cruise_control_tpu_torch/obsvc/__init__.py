@@ -14,11 +14,15 @@ Public surface (the JAX package's ``obsvc``, for the parts the port has):
   (``execution.observatory.enabled``).
 * :func:`fidelity` — the model-fidelity recorder (``monitor.fidelity.enabled``).
 * :func:`history` — the sensor history sampler (``obs.history.enabled``).
+* :mod:`~cruise_control_tpu_torch.obsvc.slo` — burn-rate SLO evaluation over
+  the history rings (``slo.*``, read by ``main.build_app``).
+* :mod:`~cruise_control_tpu_torch.obsvc.profiler` — ``POST /profile``
+  captures on ``torch.profiler``.
 * :func:`configure` — apply ``trace.*`` / ``obs.*`` / ``execution.*`` /
   ``monitor.fidelity.*`` config keys at service build time.
 
-The JAX package's profiler (``POST /profile``), device-memory ledger and SLO
-evaluator wait for the port's platform layers (ROADMAP Queue 1 items 3 and 5).
+The JAX package's device-memory ledger waits for the port's platform layers
+(ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -43,11 +47,13 @@ def configure(config) -> Tracer:
     # Lazy: the solver imports obsvc.convergence, so obsvc cannot import the
     # solver at module level without closing the cycle.
     from cruise_control_tpu_torch.analyzer import solver as _solver
+    from cruise_control_tpu_torch.obsvc import profiler
 
     tr = tracer()
     tr.configure(enabled=bool(config.get("trace.enabled")),
                  ring_size=int(config.get("trace.ring.size")))
     audit_log().configure(maxlen=int(config.get("trace.audit.log.size")))
+    profiler.configure(str(config.get("trace.profile.dir") or ""))
 
     record_rounds = bool(config.get("trace.solver.rounds"))
     _solver.set_round_recording(record_rounds)

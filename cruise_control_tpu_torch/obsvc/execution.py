@@ -9,9 +9,10 @@ recorder:
   a provenance record: the goal that proposed it, the solve id from the
   convergence recorder, the path the placement change took
   (``relax`` / ``rounding`` / ``repair`` / ``greedy``), the goal's round
-  count, and the per-move cost delta.  The relax fast path stashes its
-  post-rounding placement here so the optimizer can split relax-stage moves
-  from greedy-repair moves with a three-way diff.
+  count, and the per-move cost delta.  The relax fast path hands its
+  post-rounding placement to its own solve on the goal's info, so the
+  optimizer can split relax-stage moves from greedy-repair moves with a
+  three-way diff.
 
 - **Executor half** — a bounded flight recorder of the batch actually
   hitting the cluster: per-broker inflight moves, an EWMA of move-completion
@@ -20,8 +21,7 @@ recorder:
 
 Everything is host-side bookkeeping over already-materialized numpy
 snapshots and executor task state: the solver does the same device work with
-the recorder on or off.  The port's optimizer does not stamp provenance yet,
-so its moves count under ``unknown`` in :func:`path_histogram`.
+the recorder on or off.
 
 Read via ``GET /execution_progress``; a summary rides the
 ``executionState`` section of ``GET /state``; throughput surfaces as
@@ -75,10 +75,6 @@ class ExecutionFlightRecorder:
         self._tuner: deque = deque(maxlen=ring_size)  # AIMD tuner events
         self._lock = threading.Lock()
         self._recorded = 0
-        # Analyzer-side stash: goal name -> host copy of the post-rounding
-        # placement, set by relax.py and consumed (popped) by the optimizer's
-        # per-goal provenance diff.
-        self._rounded: Dict[str, Any] = {}
         # Live batch state (executor side).
         self._batch: Optional[Dict[str, Any]] = None
         self._inflight: Dict[int, int] = {}   # broker id -> inflight moves
@@ -97,24 +93,6 @@ class ExecutionFlightRecorder:
                 self._tuner = deque(self._tuner, maxlen=ring_size)
             if alpha is not None:
                 self.alpha = float(alpha)
-
-    # -- analyzer side: relax-stage stash ---------------------------------
-
-    def stash_rounded(self, goal_name: str, rounded) -> None:
-        """relax.py parks the post-rounding placement (host copy) here so
-        the optimizer can attribute relax vs repair moves per partition."""
-        if not self.enabled:
-            return
-        with self._lock:
-            self._rounded[goal_name] = rounded
-
-    def pop_rounded(self, goal_name: str):
-        with self._lock:
-            return self._rounded.pop(goal_name, None)
-
-    def clear_rounded(self) -> None:
-        with self._lock:
-            self._rounded.clear()
 
     # -- executor side: batch lifecycle -----------------------------------
 
@@ -362,7 +340,6 @@ class ExecutionFlightRecorder:
             self._ring.clear()
             self._pending.clear()
             self._tuner.clear()
-            self._rounded.clear()
             self._batch = None
             self._inflight = {}
             self._in_progress = 0

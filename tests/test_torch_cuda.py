@@ -349,3 +349,41 @@ def test_facade_proposals_on_the_card_equal_the_cpu(cuda):
     assert g.balancedness_score == w.balancedness_score
     assert set(g.proposals) == set(w.proposals)
     assert [i.rounds for i in g.goal_infos] == [i.rounds for i in w.goal_infos]
+
+
+@pytest.mark.cuda
+def test_servlet_explained_rebalance_on_the_card(cuda):
+    """A ``CruiseControlApp`` over a facade on the card answers
+    ``POST /rebalance?dryrun=true&explain=true`` with every proposal's
+    provenance, and the request launched the kernel."""
+    import json
+    import urllib.request
+
+    from cruise_control_tpu_torch.obsvc.execution import PATHS, execution
+    from cruise_control_tpu_torch.servlet.server import USER_TASK_HEADER, CruiseControlApp
+
+    execution().configure(enabled=True)
+    cc = _facade_stack(cuda)
+    app = CruiseControlApp(cc, port=0)
+    app.start()
+    try:
+        url = f"http://127.0.0.1:{app.port}/kafkacruisecontrol/rebalance?dryrun=true&explain=true"
+        aggregate.LAUNCHES = 0
+        task_id = None
+        for _ in range(600):
+            req = urllib.request.Request(url, method="POST")
+            if task_id:
+                req.add_header(USER_TASK_HEADER, task_id)
+            with urllib.request.urlopen(req) as r:
+                status, task_id = r.status, r.headers[USER_TASK_HEADER]
+                body = json.load(r)
+            if status == 200:
+                break
+        assert status == 200 and aggregate.LAUNCHES > 0
+        result = body["result"]
+        assert result["proposals"]
+        assert sum(result["provenancePaths"].values()) == len(result["proposals"])
+        assert all(p["provenance"]["path"] in PATHS for p in result["proposals"])
+    finally:
+        app.stop()
+        cc.shutdown()

@@ -232,12 +232,23 @@ def _audit_script(mod):
     return first, second, log.entries(), [i - ids[0] for i in ids]
 
 
+def _stamp_free(obj):
+    if isinstance(obj, dict):
+        return {k: _stamp_free(v) for k, v in obj.items() if k != "timestampMs"}
+    if isinstance(obj, (list, tuple)):
+        return [_stamp_free(v) for v in obj]
+    return obj
+
+
 def test_audit_log_records_equal_jax(monkeypatch):
     mods = {root: _mods(PKGS[root]) for root in PKGS}
     for mod in mods.values():
         monkeypatch.setattr(mod.audit, "_IDS", _ThreadPrivateIds(mod.audit._IDS))
     got = {root: _audit_script(mods[root]) for root in PKGS}
-    assert _scrub(got["torch"][:3]) == _scrub(got["jax"][:3])
+    # The ids are compared as drawn (each script's own sequence from 1); only
+    # the timestamps go, which differ when the two scripts straddle a
+    # millisecond.
+    assert _stamp_free(got["torch"][:3]) == _stamp_free(got["jax"][:3])
     assert got["torch"][3] == got["jax"][3]
     first = got["torch"][0]
     assert [e["anomalyType"] for e in first] == ["GOAL_VIOLATION", "DISK_FAILURE",
