@@ -29,8 +29,13 @@ shutdown drain; then the REST server (``CruiseControlApp``, basic
 security) in front of a facade at BASELINE #3, driven over HTTP by the CLI
 client (``POST /rebalance?dryrun=true&explain=true`` among its requests),
 and the service's entry point (``python -m cruise_control_tpu_torch.main
---demo``) as a process, stopped by SIGTERM; and the resident steady state of
-bench config #6 at 1M replicas.  Each phase counts the kernel's launches.  Prints one JSON object
+--demo``) as a process, stopped by SIGTERM; then the ingestion edge at
+BASELINE #3 (``main.build_app`` in reporter mode: 200 reporter agents, a
+share of them publishing from a child process over the authenticated TCP
+bus, the consuming sampler, the model on the card and a rebalance over HTTP,
+a restart that replays the log sample store, a maintenance plan fixed
+through the broker simulator's process, and the Prometheus sampler); and the
+resident steady state of bench config #6 at 1M replicas.  Each phase counts the kernel's launches.  Prints one JSON object
 per phase; the last line is ``{"ok": true, "device": {...}}``.  Exits
 non-zero, printing no result, when CUDA is unavailable or the port's package
 is not beside this script, and whenever a check fails.
@@ -168,6 +173,62 @@ MAIN_PROPERTIES = {
 }
 MAIN_TIMEOUT_S = 120
 MAIN_EXIT_S = 30
+# The ingest phase: the service main.build_app wires in reporter mode over
+# BASELINE #3's cluster, with FACADE_CONFIG's executor settings and its hard
+# goals as the default goals (a maintenance fix then moves what the removal
+# needs, not a rebalance's thousands of moves through the simulator).
+# The reporter and sampling threads never fire (an hour's interval): the
+# phase's clock drives INGEST_ROUNDS reporting rounds, one a 1-s window, into
+# INGEST_WINDOWS windows, each round drained by sampling ticks inside its
+# window (a tick polls at most 10,000 records a bus partition).  A child
+# process publishes INGEST_TCP_SHARE of the brokers' records over
+# authenticated TCP; the log store replays with num.metric.fetchers loaders.
+INGEST_WINDOW_MS = 1000
+INGEST_WINDOWS = 2
+INGEST_ROUNDS = 3
+INGEST_TCP_SHARE = 0.05
+INGEST_MAX_TICKS = 10
+INGEST_CONFIG = dict(FACADE_CONFIG, **{
+    "default.goals": FACADE_CONFIG["default.goals"].replace(",ReplicaDistributionGoal", ""),
+    "metric.sampler.mode": "reporter", "num.metric.fetchers": "4",
+    "metric.sampling.interval.ms": "3600000",
+    "partition.metrics.window.ms": str(INGEST_WINDOW_MS),
+    "broker.metrics.window.ms": str(INGEST_WINDOW_MS),
+    "num.partition.metrics.windows": str(INGEST_WINDOWS),
+    "num.broker.metrics.windows": str(INGEST_WINDOWS),
+    "min.samples.per.partition.metrics.window": "1",
+    "proposal.expiration.ms": "0", "anomaly.detection.interval.ms": "600000"})
+# The child publisher: refused with a wrong secret, then, for each staged
+# segment-file directory named on its stdin, every record appended over TCP
+# to the same bus partition; one JSON line a directory.
+INGEST_CHILD = r"""
+import json, sys, time
+from cruise_control_tpu_torch.reporter.transport import FileTransport, SocketTransport
+from cruise_control_tpu_torch.utils.netsec import read_secret_file
+addr, secret = sys.argv[1], read_secret_file(sys.argv[2])
+try:
+    SocketTransport(addr, auth_secret=secret + "-wrong").num_partitions
+    refused = False
+except ConnectionError:
+    refused = True
+bus = SocketTransport(addr, auth_secret=secret)
+print(json.dumps({"wrong_secret_refused": refused, "partitions": bus.num_partitions}),
+      flush=True)
+for line in sys.stdin:
+    staged = FileTransport(line.strip(), bus.num_partitions)
+    t0, n = time.perf_counter(), 0
+    for p in range(bus.num_partitions):
+        offset = 0
+        while True:
+            recs, offset = staged.poll(p, offset)
+            if not recs:
+                break
+            for rec in recs:
+                bus.append(p, rec)
+                n += 1
+    print(json.dumps({"records": n, "seconds": time.perf_counter() - t0}), flush=True)
+bus.close()
+"""
 RESIDENT = dict(HEALTHY, seed=3143)
 RESIDENT_MUTATIONS = 64
 RESIDENT_ROUNDS = 3
@@ -2087,6 +2148,420 @@ def main_phase(timeout_s=MAIN_TIMEOUT_S, device="cuda"):
     return out
 
 
+def free_port():
+    """A port free now on the loopback (the bus listener's key must be
+    non-zero: 0 turns it off)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def capacity_file(path, capacity):
+    """A capacity file (``capacity.config.file``) giving every broker
+    ``capacity``."""
+    with open(path, "w") as f:
+        json.dump({"brokerCapacities": [{"brokerId": -1, "capacity": {
+            r.name: str(v) for r, v in capacity.items()}}]}, f)
+    return path
+
+
+def ingest_round(runner, collect_s, now_ms, stage_dir, child):
+    """One reporting round at ``now_ms``: the in-process reporters report,
+    the child publishes the first INGEST_TCP_SHARE of the brokers over TCP
+    (their records staged in ``stage_dir``), then
+    sampling ticks inside the window drain the bus.  Returns the round's
+    numbers."""
+    from cruise_control_tpu_torch.reporter import FileTransport, MetricsReporter
+    reporters = [r for r in runner.reporters if isinstance(r, MetricsReporter)]
+    tcp_brokers = max(1, int(len(reporters) * INGEST_TCP_SHARE))
+    bus = runner.sampler.transport
+    before = sum(os.path.getsize(os.path.join(bus._dir, n)) for n in os.listdir(bus._dir))
+    out = dict(records=0, tcp_records=0)
+    collect_s[0] = 0.0
+    t0 = time.perf_counter()
+    for rep in reporters[tcp_brokers:]:
+        out["records"] += rep.report_once(time_ms=now_ms)
+    out["in_process_s"] = time.perf_counter() - t0
+    out["collect_s"] = collect_s[0]
+    staged = FileTransport(stage_dir, bus.num_partitions)
+    t0 = time.perf_counter()
+    for rep in reporters[:tcp_brokers]:
+        out["tcp_records"] += MetricsReporter(rep.broker_id, rep.source,
+                                              staged).report_once(time_ms=now_ms)
+    out["stage_s"] = time.perf_counter() - t0
+    child.stdin.write(stage_dir + "\n")
+    child.stdin.flush()
+    done = json.loads(child.stdout.readline())
+    check(done["records"] == out["tcp_records"],
+          f"ingest: the child published {done['records']} of {out['tcp_records']} records")
+    out["tcp_s"] = done["seconds"]
+    after = sum(os.path.getsize(os.path.join(bus._dir, n)) for n in os.listdir(bus._dir))
+    records = out["records"] + out["tcp_records"]
+    out["bytes"] = after - before - 4 * records      # without the length prefixes
+    ticks, samples = 0, 0
+    t0 = time.perf_counter()
+    while ticks < INGEST_MAX_TICKS:
+        ticks += 1
+        n = runner.run_sampling_once(now_ms + ticks)
+        samples += n
+        if not n:
+            break
+    out.update(sampling_s=time.perf_counter() - t0, ticks=ticks, samples=samples)
+    return out
+
+
+def append_costs(tmp, n=2000):
+    """Microseconds a record: one ``FileTransport.append`` of a 32-byte
+    record in ``tmp`` (it opens the segment file every time), and one
+    ``serialize_metric``."""
+    from cruise_control_tpu_torch.monitor.samples import CruiseControlMetric, RawMetricType
+    from cruise_control_tpu_torch.reporter import FileTransport, serialize_metric
+    bus = FileTransport(os.path.join(tmp, "append-probe"), num_partitions=1)
+    rec = bytes(32)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        bus.append(0, rec)
+    append_us = (time.perf_counter() - t0) / n * 1e6
+    m = CruiseControlMetric(raw_type=RawMetricType.PARTITION_SIZE, time_ms=1.0, broker_id=1,
+                            topic="topic0", partition=0, value=1.0)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        serialize_metric(m)
+    return append_us, (time.perf_counter() - t0) / n * 1e6
+
+
+def ingest_service(cfg, backend, device, now):
+    """``main.build_app`` on ``backend`` with the phase's clock: the task
+    runner reads ``now`` (ms) and its reporters share one timed source."""
+    from cruise_control_tpu_torch.main import build_app
+    app = build_app(cfg, port=0, device=device, metadata_backend=backend)
+    runner = app.cc.task_runner
+    runner._clock = lambda: now[0] / 1000.0
+    collect_s = [0.0]
+    source = next(r.source for r in runner.reporters if hasattr(r, "source"))
+    collect = source.collect
+
+    def timed(broker_id, time_ms):
+        t0 = time.perf_counter()
+        try:
+            return collect(broker_id, time_ms)
+        finally:
+            collect_s[0] += time.perf_counter() - t0
+    source.collect = timed
+    return app, collect_s
+
+
+def prometheus_server(meta):
+    """A stdlib HTTP server answering the query API for ``meta``'s brokers
+    and partitions (series for PrometheusMetricSampler's default queries:
+    partition sizes, per-topic and per-broker rates at the demo workload's
+    means), and a counter of the series it served."""
+    import threading
+    import urllib.parse
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    from cruise_control_tpu_torch.monitor import sampler as demo
+    host = {b.broker_id: b.host for b in meta.brokers}
+    led = {}
+    for p in meta.partitions:
+        if p.leader is not None:
+            led.setdefault(p.leader, {}).setdefault(p.topic, []).append(p)
+    served = [0]
+
+    def series(promql):
+        if "topic, partition" in promql:
+            return [({"instance": f"{host[p.leader]}:9092", "topic": p.topic,
+                      "partition": str(p.partition)}, demo.DEMO_MEAN_SIZE)
+                    for p in meta.partitions if p.leader is not None]
+        rate = demo.DEMO_MEAN_BYTES_OUT if "BytesOut" in promql else demo.DEMO_MEAN_BYTES_IN
+        if "topic" in promql:
+            return [({"instance": f"{host[b]}:9092", "topic": t}, rate * len(ps))
+                    for b, topics in led.items() for t, ps in topics.items()]
+        if "cpu" in promql:
+            return [({"instance": f"{host[b]}:9092"},
+                     demo.DEMO_CPU_PER_LEADER * max(len(sum(led.get(b, {}).values(), [])), 1))
+                    for b in host]
+        return [({"instance": f"{host[b]}:9092"},
+                 rate * len(sum(led.get(b, {}).values(), []))) for b in host]
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_GET(self):
+            q = urllib.parse.parse_qs(urllib.parse.urlparse(self.path).query)
+            end = float(q["end"][0])
+            result = [{"metric": labels, "values": [[end, str(v)]]}
+                      for labels, v in series(q["query"][0])]
+            served[0] += len(result)
+            body = json.dumps({"status": "success", "data": {
+                "resultType": "matrix", "result": result}}).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):
+            pass
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server, served
+
+
+def ingest_phase(aggregate, props, device="cuda"):
+    """The ingestion edge at BASELINE #3, through ``main.build_app`` in
+    reporter mode with a store directory (the metrics bus and the log sample
+    store are segment-file logs), four fetchers, the bus listener on a free
+    port with a shared secret, and capacities at which the mean broker
+    carries MONITOR_MEAN_LOAD_SHARE of each resource:
+
+    (a) INGEST_ROUNDS reporting rounds on the phase's clock; a child process
+        publishes INGEST_TCP_SHARE of the brokers' records over
+        authenticated TCP (a wrong secret refused first);
+    (b) the model on the card, then a dry-run rebalance of the hard goals
+        over HTTP by the port's CLI client: the kernel launched, the hard
+        goals met, the verifier clean on the solve's placement;
+    (c) the service shut down and a second one built on the same directory:
+        the log store's replay gives the same windows and valid partitions,
+        its generation is not back near 0, and the committed offsets keep
+        the bus from being ingested again;
+    (d) on that service, a ``remove_broker`` maintenance plan published to an
+        authenticated ``TransportServer``: the reader, the detection round
+        and the facade's fix, executed through the broker simulator's process
+        over authenticated TCP, until the broker is empty there;
+    (e) the service in Prometheus mode against a query server in this
+        process: one window to samples."""
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.config import CruiseControlConfig
+    from cruise_control_tpu_torch.detector.anomalies import AnomalyType
+    from cruise_control_tpu_torch.detector.maintenance_reader import serialize_plan
+    from cruise_control_tpu_torch.executor.subprocess_backend import SocketClusterBackend
+    from cruise_control_tpu_torch.main import build_app
+    from cruise_control_tpu_torch.model.builder import builder_from_snapshot
+    from cruise_control_tpu_torch.monitor.load_monitor import ModelCompletenessRequirements
+    from cruise_control_tpu_torch.monitor.sampler import SyntheticWorkloadSampler
+    from cruise_control_tpu_torch.obsvc.audit import audit_log
+    from cruise_control_tpu_torch.reporter import (InProcessTransport, SocketTransport,
+                                                   TransportServer)
+    from cruise_control_tpu_torch.testing import random_cluster as rc
+    tmp = tempfile.mkdtemp(prefix="ingest-phase-")
+    store = os.path.join(tmp, "store")
+    secret = os.path.join(tmp, "bus.secret")
+    with open(secret, "w") as f:
+        f.write("ingest-bus-secret\n")
+    st, pl, mt = rc.generate(rc.ClusterProperties(**props), device="cpu")
+    backend = metadata_backend(builder_from_snapshot(st, pl, mt))
+    del st, pl
+    capacity = synthetic_capacity(SyntheticWorkloadSampler(), mt.num_replicas,
+                                  mt.num_partitions, mt.num_brokers)
+    bus_port = free_port()
+    cfg = CruiseControlConfig(dict(INGEST_CONFIG, **{
+        "sample.store.dir": store, "metrics.transport.listen.port": str(bus_port),
+        "metrics.transport.auth.secret.file": secret,
+        "capacity.config.file": capacity_file(os.path.join(tmp, "capacity.json"), capacity)}))
+    hard = cfg.goal_names("hard.goals")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = dict(replicas=mt.num_replicas, partitions=mt.num_partitions, brokers=mt.num_brokers)
+    now = [0.0]
+    procs = []
+    try:
+        # ---- (a) reporting rounds, a share of them over TCP.
+        app, collect_s = ingest_service(cfg, backend, device, now)
+        cc, runner = app.cc, app.cc.task_runner
+        check(type(runner.sampler).__name__ == "ConsumingMetricSampler"
+              and type(runner.sample_store).__name__ == "LogSampleStore"
+              and runner.reporters[-1].port == bus_port,
+              "ingest: build_app did not wire the reporter pipeline")
+        runner.start()
+        app.start()
+        child = subprocess.Popen([sys.executable, "-c", INGEST_CHILD,
+                                  f"127.0.0.1:{bus_port}", secret], cwd=REPO, env=env,
+                                 stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        procs.append(child)
+        hello = json.loads(child.stdout.readline())
+        check(hello["wrong_secret_refused"], "ingest: the bus took a wrong secret")
+        append_us, serde_us = append_costs(tmp)
+        rounds = []
+        t_first = time.monotonic()
+        for w in range(INGEST_ROUNDS):
+            now[0] = w * INGEST_WINDOW_MS + INGEST_WINDOW_MS / 2
+            rounds.append(ingest_round(runner, collect_s, now[0],
+                                       os.path.join(tmp, f"stage-{w}"), child))
+        child.stdin.close()
+        check(child.wait(timeout=60) == 0, "ingest: the TCP publisher failed")
+        lm = cc.load_monitor
+        check(lm.meet_completeness_requirements(ModelCompletenessRequirements(
+            INGEST_WINDOWS, MONITOR_MIN_PARTITIONS)), "ingest: the model is not complete")
+        state, placement, meta = lm.cluster_model(device=device)
+        sync(device)
+        check(state.leader_load.device.type == "cuda" or device == "cpu",
+              "ingest: the model is not on the card")
+        to_model_s = time.monotonic() - t_first
+        last = rounds[-1]
+        total = last["records"] + last["tcp_records"]
+        out["a_reporting"] = dict(
+            rounds=rounds, round_records=total, round_bytes=last["bytes"],
+            in_process_records_per_s=last["records"] / last["in_process_s"],
+            tcp_records_per_s=last["tcp_records"] / last["tcp_s"],
+            collect_share=last["collect_s"] / (last["in_process_s"] + last["stage_s"]),
+            wrong_secret_refused=hello["wrong_secret_refused"],
+            segment_append_us=append_us, serialize_us=serde_us)
+
+        # ---- (b) the model on the card; the hard goals' dry run over HTTP.
+        before = lm.state().to_dict()
+        solves = []
+        orig = GoalOptimizer.optimizations
+
+        def recorded(opt, s, p, m, *args, **kwargs):
+            res = orig(opt, s, p, m, *args, **kwargs)
+            solves.append((s, p, m, res))
+            return res
+        GoalOptimizer.optimizations = recorded
+        try:
+            aggregate.LAUNCHES = 0
+            t0 = time.monotonic()
+            rc_, body = cli_call(f"http://127.0.0.1:{app.port}",
+                                 ["rebalance", "--dryrun", "true", "--goals", ",".join(hard)])
+            sync(device)
+            http_s, launches = time.monotonic() - t0, aggregate.LAUNCHES
+        finally:
+            GoalOptimizer.optimizations = orig
+        check(rc_ == 0 and body["httpStatus"] == 200,
+              f"ingest: cccli rebalance exited {rc_}: {str(body)[:300]}")
+        check(launches > 0, "ingest: the rebalance launched the kernel 0 times")
+        violated = set(body["result"]["violatedGoalsAfter"])
+        check(not violated & set(hard), f"ingest: hard goals violated after: {violated}")
+        check(len(solves) == 1, f"ingest: the rebalance ran {len(solves)} solves")
+        s, p, m, res = solves[0]
+        judged = judge(aggregate, "ingest (b)", s, p, m, res.final_placement, device,
+                       goal_names=hard)
+        out["b_model"] = dict(first_report_to_model_s=to_model_s, monitor=before,
+                              rebalance_http_s=http_s, kernel_launches=launches,
+                              replica_moves=body["result"]["numInterBrokerReplicaMovements"],
+                              violated_goals_after=sorted(violated), verifier=judged)
+
+        # ---- (c) shut down; a second service on the same store directory.
+        app.stop()
+        cc.shutdown()
+        maint = TransportServer(InProcessTransport(num_partitions=4),
+                                auth_secret="ingest-maintenance-secret")
+        maint.start()
+        token = os.path.join(tmp, "admin.secret")
+        with open(token, "w") as f:
+            f.write("ingest-admin-token\n")
+        msecret = os.path.join(tmp, "maintenance.secret")
+        with open(msecret, "w") as f:
+            f.write("ingest-maintenance-secret\n")
+        sim = subprocess.Popen(
+            [sys.executable, "-m", "cruise_control_tpu_torch.executor.broker_simulator",
+             "--listen", "0", "--polls-to-finish", "1", "--auth-token-file", token],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        procs.append(sim)
+        sim_port = int(json.loads(sim.stdout.readline())["listening"])
+        admin = SocketClusterBackend("127.0.0.1", sim_port, auth_secret="ingest-admin-token")
+        admin.request("bootstrap", partitions=[
+            {"topic": q.topic, "partition": q.partition, "replicas": list(q.replicas),
+             "leader": q.leader, "logdirs": {str(b): 0 for b in q.replicas}}
+            for q in backend.partitions])
+        cfg2 = CruiseControlConfig(dict(cfg.originals, **{
+            "maintenance.event.transport.address": f"127.0.0.1:{maint.port}",
+            "maintenance.event.transport.auth.secret.file": msecret,
+            "maintenance.event.offsets.path": os.path.join(tmp, "maintenance-offsets.json"),
+            "executor.admin.backend.address": f"127.0.0.1:{sim_port}",
+            "executor.admin.backend.auth.secret.file": token}))
+        app, _ = ingest_service(cfg2, backend, device, now)
+        cc, runner = app.cc, app.cc.task_runner
+        lm = cc.load_monitor
+        t0 = time.monotonic()
+        runner.start()
+        replay_s = time.monotonic() - t0
+        after = lm.state().to_dict()
+        state, placement, meta = lm.cluster_model(device=device)
+        sync(device)
+        restart_to_model_s = time.monotonic() - t0
+        now[0] += INGEST_WINDOW_MS / 4
+        reingested = runner.run_sampling_once(now[0])
+        check((after["numValidWindows"], after["monitoredPartitionsPercentage"]) ==
+              (before["numValidWindows"], before["monitoredPartitionsPercentage"]),
+              f"ingest: the restart's monitor {after} differs from the first's {before}")
+        check(after["generation"] >= before["generation"] and after["generation"] > 1000,
+              f"ingest: the restart's generation {after['generation']} is back near 0")
+        check(reingested == 0, f"ingest: the restart ingested {reingested} samples again")
+        out["c_restart"] = dict(replay_s=replay_s, replayed_samples=after["generation"],
+                                restart_to_model_s=restart_to_model_s, monitor=after,
+                                reingested_samples=reingested)
+
+        # ---- (d) a maintenance plan through the detector, the fix and the
+        # simulator's process.
+        cc.set_self_healing(AnomalyType.MAINTENANCE_EVENT, True)
+        victim = next(b.broker_id for b in backend.brokers
+                      if any(b.broker_id in q.replicas for q in backend.partitions))
+        producer = SocketTransport(f"127.0.0.1:{maint.port}",
+                                   auth_secret="ingest-maintenance-secret")
+        t0 = time.monotonic()
+        producer.append(victim % 4, serialize_plan("remove_broker", time_ms=time.time() * 1000,
+                                                   broker_ids=(victim,)))
+        producer.close()
+        check(cc.maintenance_reader.poll_once() == (1, 0), "ingest: the plan was not read")
+        aggregate.LAUNCHES = 0
+        cc.anomaly_detector.run_detection_once()
+        thread = cc.executor._thread
+        check(thread is not None, "ingest: the maintenance fix started no execution")
+        thread.join(timeout=EXECUTE_TIMEOUT_S)
+        check(not thread.is_alive(), "ingest: the fix's execution did not end")
+        left = [d for d in admin.describe_topics() if victim in d["replicas"]]
+        empty_s = time.monotonic() - t0
+        check(not left, f"ingest: broker {victim} keeps {len(left)} replicas in the simulator")
+        tasks = task_counts(cc.executor.tracker)
+        check(set(tasks) == {"completed"}, f"ingest: the fix's tasks {tasks}")
+        out["d_maintenance"] = dict(broker=victim, publish_to_empty_s=empty_s, tasks=tasks,
+                                    kernel_launches=aggregate.LAUNCHES)
+        cc.maintenance_reader._transport.close()
+        # This app's HTTP server was never started (stop() would wait on it).
+        app.user_tasks.shutdown()
+        app.server.server_close()
+        cc.shutdown()
+        maint.stop()
+        admin.close()
+        sim.wait(timeout=30)
+        audit_log().clear()
+
+        # ---- (e) Prometheus mode: one window to samples.
+        server, served = prometheus_server(backend.fetch())
+        try:
+            props = {k: v for k, v in cfg.originals.items()
+                     if not k.startswith(("metrics.transport.", "sample.store."))}
+            app = build_app(CruiseControlConfig(dict(props, **{
+                "metric.sampler.mode": "prometheus",
+                "prometheus.server.endpoint": f"http://127.0.0.1:{server.server_port}"})),
+                port=0, device=device, metadata_backend=backend)
+            runner = app.cc.task_runner
+            runner._clock = lambda: now[0] / 1000.0
+            runner.start()
+            now[0] += INGEST_WINDOW_MS
+            t0 = time.monotonic()
+            samples = runner.run_sampling_once(now[0])
+            prom_s = time.monotonic() - t0
+            leaders = sum(1 for q in backend.partitions if q.leader is not None)
+            check(samples == leaders + len(backend.brokers),
+                  f"ingest: Prometheus gave {samples} samples for {leaders} partitions and "
+                  f"{len(backend.brokers)} brokers")
+            out["e_prometheus"] = dict(window_to_samples_s=prom_s, series=served[0],
+                                       samples=samples)
+            app.user_tasks.shutdown()
+            app.server.server_close()
+            app.cc.shutdown()
+        finally:
+            server.shutdown()
+            server.server_close()
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def resident_phase(aggregate, props, mutations, rounds, device="cuda"):
     """Bench config #6: one full freeze seeds the resident service from a
     builder of the generated cluster; a base solve of the six hard goals;
@@ -2403,6 +2878,9 @@ def main():
     # HTTP by the CLI client; then the service's own entry point as a process.
     emit("servlet", **servlet_phase(aggregate, BASELINE3))
     emit("main", **main_phase())
+    # ---- the ingestion edge at BASELINE #3: reporters, the bus (in process
+    # and over TCP), the log store's restart, a maintenance plan, Prometheus.
+    emit("ingest", **ingest_phase(aggregate, BASELINE3))
     emit("resident", **resident_phase(aggregate, RESIDENT, RESIDENT_MUTATIONS,
                                       RESIDENT_ROUNDS))
 

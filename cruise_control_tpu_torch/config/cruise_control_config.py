@@ -640,16 +640,12 @@ def _webserver_def() -> ConfigDef:
 
 
 # Keys (or key prefixes ending in ".") whose consumer is not ported yet, with
-# the ROADMAP Queue 1 item that ports it: 3 = the reporter, fetchers,
-# Prometheus sampler, maintenance transports and fuzz service, 5 = the compile
-# service and device-memory ledger.  ``main.build_app`` raises ConfigError
-# where a value asks for one of the missing modules.
+# the ROADMAP Queue 1 item that ports it: 3 = the fuzz service (its campaign
+# keys, and the relaxation tolerance its invariants read), 5 = the compile
+# service and device-memory ledger.  The port's service reads every other key.
 INERT_UNTIL: Dict[str, int] = {
     "compile.": 5, "memory.": 5,
     "fuzz.": 3, "solver.relaxation.tolerance": 3,
-    "metric.sampler.mode": 3, "metrics.transport.": 3, "num.metric.fetchers": 3,
-    "prometheus.server.endpoint": 3,
-    "maintenance.event.transport.": 3, "maintenance.event.offsets.path": 3,
 }
 
 

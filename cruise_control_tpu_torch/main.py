@@ -9,12 +9,15 @@ service runs standalone (the role of the reference's embedded-broker harness).
 Every solve runs on ``--device`` (``cuda`` by default).  With ``cuda`` and no
 visible card the process exits non-zero: it never carries on on the CPU.
 
-Config paths whose modules the port does not have yet raise
-:class:`ConfigError` naming the ROADMAP Queue 1 item that ports them: the
-reporter and Prometheus sampler modes, the log sample store, the metrics
-bus listener and the maintenance-event transports (item 3).  The JAX
-package's compile-service configuration and fuzz sensors are not called
-(items 5 and 3); their keys stay accepted and inert (``INERT_UNTIL``).
+``metric.sampler.mode`` picks the ingestion edge as in the JAX package:
+``synthetic`` (the default), ``reporter`` (one reporter agent per broker
+publishing over the metrics bus to the consuming sampler; with
+``sample.store.dir`` the bus and the sample store are segment-file logs that
+a restart replays) or ``prometheus``.  ``metrics.transport.listen.port``
+serves the bus over TCP, and ``maintenance.event.transport.*`` feeds
+maintenance plans to the detector.  The JAX package's compile-service
+configuration and fuzz sensors are not called (ROADMAP Queue 1 items 5 and
+3); their keys stay accepted and inert (``INERT_UNTIL``).
 
     python -m cruise_control_tpu_torch.main --demo [--device cpu] [--port N]
         [--config cruisecontrol.properties]
@@ -24,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 import signal
 import sys
 import time
@@ -43,18 +47,18 @@ from cruise_control_tpu_torch.monitor.metadata import (
     MetadataClient,
     PartitionInfo,
 )
-from cruise_control_tpu_torch.monitor.sample_store import FileSampleStore, NoopSampleStore
+from cruise_control_tpu_torch.monitor.sample_store import (
+    FileSampleStore,
+    LogSampleStore,
+    NoopSampleStore,
+)
 from cruise_control_tpu_torch.monitor.sampler import SyntheticWorkloadSampler
 from cruise_control_tpu_torch.monitor.task_runner import LoadMonitorTaskRunner
 from cruise_control_tpu_torch.servlet.server import CruiseControlApp
 
 # The listening line's prefix (``main`` prints it once the server is up).
 LISTENING = "cruise-control-tpu-torch listening on"
-
-
-def _missing(what: str, item: int) -> ConfigError:
-    return ConfigError(f"{what} needs a module the port does not have yet "
-                       f"(ROADMAP Queue 1 item {item})")
+LOG = logging.getLogger(__name__)
 
 
 def demo_metadata(num_brokers: int = 6, num_partitions: int = 48,
@@ -77,9 +81,10 @@ def build_app(config: CruiseControlConfig, port: Optional[int] = None,
     the metadata/admin/sampler seams.  Every solve runs on ``device``.
 
     ``metadata_backend`` takes the demo cluster's place (``demo_metadata()``
-    by default), and ``monitor``, a load monitor and its task runner that
-    already read it, the monitor, sampler and sample store the config would
-    build; every other part is wired from ``config`` as without them."""
+    by default; reporter mode's agents read it too), and ``monitor``, a load
+    monitor and its task runner that already read it, the monitor, sampler,
+    sample store and metrics bus the config would build; every other part is
+    wired from ``config`` as without them."""
     from cruise_control_tpu_torch import resilience
     from cruise_control_tpu_torch.config.config_def import get_configured_instance
     from cruise_control_tpu_torch.obsvc import configure as configure_obsvc
@@ -92,20 +97,6 @@ def build_app(config: CruiseControlConfig, port: Optional[int] = None,
     sampler_cls = str(config.originals.get("metric.sampler.class", "") or "")
     store_cls = str(config.originals.get("sample.store.class", "") or "")
     store_dir = config.get("sample.store.dir")
-    # Paths whose modules wait for ROADMAP Queue 1 item 3: refuse them before
-    # anything is built, never skip them silently.
-    if store_dir and mode == "reporter" and not store_cls:
-        raise _missing("sample.store.dir in metric.sampler.mode=reporter "
-                       "(the log sample store)", 3)
-    if mode in ("reporter", "prometheus") and not sampler_cls:
-        raise _missing(f"metric.sampler.mode={mode}", 3)
-    if int(config["metrics.transport.listen.port"]):
-        raise _missing("metrics.transport.listen.port (the metrics bus "
-                       "listener)", 3)
-    if (config["maintenance.event.transport.address"]
-            or config["maintenance.event.transport.dir"]):
-        raise _missing("maintenance.event.transport.* (the maintenance-event "
-                       "bus)", 3)
 
     # Reflective plugin overrides (AbstractConfig.getConfiguredInstance):
     # an explicit *.class key is consulted first, so the mode-derived
@@ -118,7 +109,7 @@ def build_app(config: CruiseControlConfig, port: Optional[int] = None,
     if monitor is not None:
         load_monitor, task_runner = monitor
     else:
-        load_monitor, task_runner = _monitor(config, backend, _plugin, sampler_cls,
+        load_monitor, task_runner = _monitor(config, backend, _plugin, mode, sampler_cls,
                                             store_cls, store_dir)
 
     admin_cls = str(config.originals.get("executor.admin.backend.class", "") or "")
@@ -186,6 +177,9 @@ def build_app(config: CruiseControlConfig, port: Optional[int] = None,
         slo_preempt_enabled=bool(config.get("slo.preempt.enabled")),
         device=device)
     _configure_solver(cc, config)
+    if config["maintenance.event.transport.address"] or \
+            config["maintenance.event.transport.dir"]:
+        cc.maintenance_reader = _maintenance_reader(config, cc)
     ssl_on = config["webserver.ssl.enable"]
     if ssl_on and not config["webserver.ssl.certfile"]:
         hint = ""
@@ -217,10 +211,11 @@ def build_app(config: CruiseControlConfig, port: Optional[int] = None,
             if config.get("servlet.user.task.timeout.ms") else None))
 
 
-def _monitor(config: CruiseControlConfig, backend, plugin, sampler_cls: str,
+def _monitor(config: CruiseControlConfig, backend, plugin, mode: str, sampler_cls: str,
              store_cls: str, store_dir) -> Tuple[LoadMonitor, LoadMonitorTaskRunner]:
     """The load monitor over ``backend`` and its task runner, with the
-    capacity resolver, sampler and sample store the config names."""
+    capacity resolver, sampler, sample store, reporter agents and metrics bus
+    listener the config names."""
     metadata_client = MetadataClient(backend, ttl_ms=config["metadata.max.age.ms"])
     capacity_file = config.get("capacity.config.file")
     resolver_name = str(config.originals.get(
@@ -243,15 +238,112 @@ def _monitor(config: CruiseControlConfig, backend, plugin, sampler_cls: str,
     )
     if store_cls:
         store = plugin(store_cls)
+    elif store_dir and mode == "reporter":
+        # KafkaSampleStore shape: accepted samples ride the same
+        # partitioned-log SPI the reporter publishes on, so a restart
+        # replays them with the N-consumer reload.
+        from cruise_control_tpu_torch.reporter import FileTransport
+        store = LogSampleStore(
+            FileTransport(os.path.join(store_dir, "partition-samples")),
+            FileTransport(os.path.join(store_dir, "broker-samples")),
+            num_loaders=config["num.metric.fetchers"])
     elif store_dir:
         store = FileSampleStore(store_dir)
     else:
         store = NoopSampleStore()
-    sampler = plugin(sampler_cls) if sampler_cls else SyntheticWorkloadSampler()
+    reporters = []
+    transport = None
+    if sampler_cls:
+        sampler = plugin(sampler_cls)
+    elif mode == "reporter":
+        sampler, transport, reporters = _reporter_pipeline(config, backend, store_dir)
+    elif mode == "prometheus":
+        from cruise_control_tpu_torch.monitor.prometheus import PrometheusMetricSampler
+        sampler = PrometheusMetricSampler(endpoint=config["prometheus.server.endpoint"])
+    else:
+        sampler = SyntheticWorkloadSampler()
     task_runner = LoadMonitorTaskRunner(
         load_monitor, sampler, store,
         sampling_interval_ms=config["metric.sampling.interval.ms"])
+    # The task runner starts and stops everything in its reporters list.
+    task_runner.reporters = reporters
+    bus_port = int(config["metrics.transport.listen.port"])
+    if bus_port and transport is not None:
+        task_runner.reporters = list(reporters) + [_bus_server(config, transport, bus_port)]
+    elif bus_port:
+        LOG.warning("metrics.transport.listen.port=%d ignored: it serves the "
+                    "reporter-mode transport (metric.sampler.mode=reporter, no "
+                    "metric.sampler.class override)", bus_port)
     return load_monitor, task_runner
+
+
+def _reporter_pipeline(config: CruiseControlConfig, backend, store_dir):
+    """Reporter mode's ingestion edge: per-broker reporter agents → the
+    metrics bus → the fan-out consuming sampler.  With a store directory the
+    bus is a segment-file log, and the consumer's committed offsets keep a
+    restart from re-ingesting it.  Returns (sampler, bus, reporters)."""
+    from cruise_control_tpu_torch.monitor.fetcher import ConsumingMetricSampler
+    from cruise_control_tpu_torch.reporter import (DemoBrokerMetricsSource, FileTransport,
+                                                   InProcessTransport, MetricsReporter)
+    offsets_path = None
+    if store_dir:
+        transport = FileTransport(os.path.join(store_dir, "metrics"), num_partitions=8)
+        offsets_path = os.path.join(store_dir, "metrics-consumer-offsets.json")
+    else:
+        transport = InProcessTransport(num_partitions=8)
+    source = DemoBrokerMetricsSource(backend)
+    interval = config["metric.sampling.interval.ms"]
+    reporters = [MetricsReporter(b.broker_id, source, transport,
+                                 reporting_interval_ms=interval / 2)
+                 for b in backend.fetch().brokers]
+    sampler = ConsumingMetricSampler(transport, num_fetchers=config["num.metric.fetchers"],
+                                     offsets_path=offsets_path)
+    return sampler, transport, reporters
+
+
+def _bus_server(config: CruiseControlConfig, transport, port: int):
+    """The metrics bus's network face: external broker agents publish to
+    this listener with ``reporter.SocketTransport``; the consuming sampler
+    reads the same log."""
+    from cruise_control_tpu_torch.reporter import TransportServer
+    from cruise_control_tpu_torch.utils.netsec import read_secret_file
+    secret_file = config["metrics.transport.auth.secret.file"]
+    secret = read_secret_file(secret_file, "metrics bus secret") if secret_file else None
+    bind = config["metrics.transport.listen.address"]
+    if bind not in ("127.0.0.1", "localhost", "::1") and not secret:
+        LOG.warning("metrics bus bound to %s with NO authentication — any peer "
+                    "that can reach the port can forge metrics or read workload "
+                    "data; set metrics.transport.auth.secret.file (and TLS)", bind)
+    return TransportServer(
+        transport, host=bind, port=port, auth_secret=secret,
+        ssl_certfile=config["metrics.transport.ssl.certfile"] or None,
+        ssl_keyfile=config["metrics.transport.ssl.keyfile"] or None)
+
+
+def _maintenance_reader(config: CruiseControlConfig, cc: CruiseControl):
+    """Maintenance plans from the message bus (MaintenanceEventTopicReader
+    analog): a TCP ``TransportServer`` peer or a ``FileTransport`` directory
+    feeds the maintenance-event detector, with committed offsets."""
+    from cruise_control_tpu_torch.detector.anomalies import AnomalyType
+    from cruise_control_tpu_torch.detector.maintenance_reader import MaintenanceEventReader
+    from cruise_control_tpu_torch.reporter import FileTransport, SocketTransport
+    from cruise_control_tpu_torch.utils.netsec import read_secret_file
+    addr = config["maintenance.event.transport.address"]
+    directory = config["maintenance.event.transport.dir"]
+    if addr:
+        secret_file = config["maintenance.event.transport.auth.secret.file"]
+        secret = read_secret_file(secret_file, "maintenance bus secret") if secret_file else None
+        transport = SocketTransport(
+            addr, auth_secret=secret,
+            ssl_enable=config["maintenance.event.transport.ssl.enable"],
+            ssl_cafile=config["maintenance.event.transport.ssl.cafile"] or None)
+    else:
+        transport = FileTransport(directory, num_partitions=8)
+    offsets_path = config["maintenance.event.offsets.path"] or (
+        os.path.join(directory, "consumer-offsets.json") if directory else None)
+    return MaintenanceEventReader(
+        transport, cc.anomaly_detector.detectors[AnomalyType.MAINTENANCE_EVENT],
+        offsets_path=offsets_path, expiration_ms=config["maintenance.plan.expiration.ms"])
 
 
 def _socket_admin_backend(config: CruiseControlConfig, admin_addr: str, res):

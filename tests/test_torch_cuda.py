@@ -387,3 +387,48 @@ def test_servlet_explained_rebalance_on_the_card(cuda):
     finally:
         app.stop()
         cc.shutdown()
+
+
+@pytest.mark.cuda
+def test_reporter_mode_service_to_a_model_on_the_card(cuda, tmp_path):
+    """``main.build_app`` in reporter mode with a store directory: the
+    reporters' records go over the segment-file bus to the consuming
+    sampler, windows form on an explicit clock, the monitor's model lands on
+    the card, and the service's proposals launch the kernel; a second
+    service on the same directory replays the log store to the same
+    windows."""
+    from cruise_control_tpu_torch.config.cruise_control_config import CruiseControlConfig
+    from cruise_control_tpu_torch.main import build_app
+
+    props = {"metric.sampler.mode": "reporter", "sample.store.dir": str(tmp_path),
+             "num.metric.fetchers": "4", "metric.sampling.interval.ms": "3600000",
+             "partition.metrics.window.ms": "400", "broker.metrics.window.ms": "400",
+             "num.partition.metrics.windows": "3", "num.broker.metrics.windows": "3",
+             "min.samples.per.partition.metrics.window": "1", "obs.history.enabled": "false",
+             "default.goals": "RackAwareGoal,ReplicaCapacityGoal,ReplicaDistributionGoal"}
+    states = []
+    for restart in range(2):
+        app = build_app(CruiseControlConfig(props), port=0, device="cuda")
+        runner = app.cc.task_runner
+        now = [0.0]
+        runner._clock = lambda: now[0] / 1000.0
+        runner.start()
+        try:
+            for w in range(0 if restart else 5):
+                now[0] = w * 400 + 200
+                for rep in runner.reporters:
+                    rep.report_once(time_ms=now[0])
+                runner.run_sampling_once(now[0])
+            st = app.cc.load_monitor.state()
+            states.append((st.num_valid_windows, st.monitored_partitions_percentage))
+            state, placement, _ = app.cc.load_monitor.cluster_model(device=cuda)
+            assert state.leader_load.is_cuda and placement.broker.is_cuda
+            aggregate.LAUNCHES = 0
+            result = app.cc.proposals()
+            assert aggregate.LAUNCHES > 0
+            assert result.optimizer_result.final_placement.broker.is_cuda
+        finally:
+            app.user_tasks.shutdown()
+            app.server.server_close()
+            app.cc.shutdown()
+    assert states[0][0] >= 2 and states[1] == states[0]

@@ -87,17 +87,31 @@ def build_stack(m, num_brokers=4, partitions=8, rf=2, self_healing=False, **cc_k
     return cc, backend, cluster
 
 
-def _wait_executor_idle(cc, timeout=10.0):
-    deadline = time.time() + timeout
-    while cc.executor.has_ongoing_execution and time.time() < deadline:
-        time.sleep(0.01)
-    assert not cc.executor.has_ongoing_execution
-    # The batch's audit outcome is attached after the state goes idle: wait
-    # for the execution thread itself.
+def _wait_executor_idle(cc, timeout=60.0):
+    """Wait for the execution itself: join the executor's thread (the
+    batch's audit outcome and operation-log line come at its end, after the
+    state goes idle), then check the executor is idle."""
     thread = cc.executor._thread
     if thread is not None:
         thread.join(timeout)
-        assert not thread.is_alive()
+        assert not thread.is_alive(), f"the execution did not end within {timeout} s"
+    assert not cc.executor.has_ongoing_execution
+
+
+def _hold_execution(cluster):
+    """An event that holds the admin backend's first reassignment until it is
+    set, so an execution started by a fix cannot end before the fixer and
+    the manager have recorded the fix (their operation-log and audit lines
+    then come in one order in both packages)."""
+    gate = threading.Event()
+    reassign = cluster.execute_replica_reassignments
+
+    def held(tasks):
+        assert gate.wait(60.0), "the held execution was never released"
+        return reassign(tasks)
+
+    cluster.execute_replica_reassignments = held
+    return gate
 
 
 class _Solves:
@@ -352,7 +366,9 @@ def test_maintenance_event_routes_through_fixer(both):
         cc.anomaly_detector._fixer = lambda a: calls.append(a.anomaly_type.name) or cc._fix_anomaly(a)
         det = cc.anomaly_detector.detectors[m.anomalies.AnomalyType.MAINTENANCE_EVENT]
         det.submit(m.anomalies.MaintenanceEvent(plan="remove_broker", broker_ids=(1,)))
+        gate = _hold_execution(cluster)
         cc.anomaly_detector.run_detection_once()
+        gate.set()
         _wait_executor_idle(cc)
         assert "MAINTENANCE_EVENT" in calls
         assert all(1 not in p.replicas for p in backend.fetch().partitions)

@@ -41,7 +41,9 @@ def test_scan_covers_every_module_of_the_port():
     model, the executor, the detectors, the verifier, the config, resilience
     and observatory packages, the maintenance reader, the facade and their
     host-side support included, and the REST server, the bootstrap, the CLI,
-    the SLO evaluator, the profiler and the SPNEGO test validator."""
+    the SLO evaluator, the profiler and the SPNEGO test validator, and the
+    ingestion edge: the reporter's serde, transports and agent, the
+    consuming and Prometheus samplers."""
     names = {".".join(p.relative_to(PORT).with_suffix("").parts) for p in _port_modules()}
     assert {"model.builder", "model.snapshot", "model.state", "model.cpu_model",
             "testing.deterministic", "analyzer.budget", "analyzer.relax",
@@ -65,7 +67,9 @@ def test_scan_covers_every_module_of_the_port():
             "servlet.__init__", "servlet.progress", "servlet.purgatory",
             "servlet.user_tasks", "servlet.security", "servlet.schemas", "servlet.server",
             "servlet.openapi", "main", "client.cccli", "obsvc.slo", "obsvc.profiler",
-            "testing.fake_gss"} <= names
+            "testing.fake_gss", "reporter.__init__", "reporter.serde",
+            "reporter.transport", "reporter.agent", "monitor.fetcher",
+            "monitor.prometheus"} <= names
     # The JAX package's failover module imports jax; the port has none yet.
     assert "resilience.failover" not in names
 

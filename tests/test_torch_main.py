@@ -2,8 +2,8 @@
 and the CLI client, against the JAX package's.
 
 ``build_app`` wires the config as the JAX package's does (compared attribute
-by attribute on the same properties); the config paths whose modules the
-port lacks raise ``ConfigError`` naming the ROADMAP item; ``main`` runs on
+by attribute on the same properties), the ingestion edge's paths included;
+``main`` runs on
 ``--device cuda`` by default and exits non-zero without a card instead of
 carrying on on the CPU; ``python -m cruise_control_tpu_torch.main --demo
 --device cpu`` serves a rebalance to the port's CLI and exits 0 on SIGTERM.
@@ -48,19 +48,91 @@ def _close(app):
     app.cc.shutdown()
 
 
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _wiring(app):
+    """What the ingestion-edge paths wire, as plain values: the sampler,
+    store, reporter agents, bus listener and maintenance reader, with their
+    classes, partitions, fetchers, intervals and paths."""
+    runner, cc = app.cc.task_runner, app.cc
+    sampler, store = runner.sampler, runner.sample_store
+    out = {"sampler": type(sampler).__name__, "store": type(store).__name__,
+           "reporters": sorted((type(r).__name__, getattr(r, "broker_id", None),
+                                getattr(r, "interval_ms", None)) for r in runner.reporters)}
+    if hasattr(sampler, "num_fetchers"):
+        out.update(fetchers=sampler.num_fetchers, offsets=sampler._offsets_path,
+                   bus=(type(sampler.transport).__name__, sampler.transport.num_partitions,
+                        getattr(sampler.transport, "_dir", None)))
+    if hasattr(sampler, "endpoint"):
+        out.update(endpoint=sampler.endpoint, step_ms=sampler.step_ms,
+                   queries=sorted(t.name for t in sampler.query_map))
+    if hasattr(store, "num_loaders"):
+        out.update(loaders=store.num_loaders, store_cap=store.max_records_per_partition,
+                   store_logs=[(type(t).__name__, t.num_partitions, t._dir)
+                               for t in (store._pt, store._bt)])
+    for r in runner.reporters:
+        if type(r).__name__ == "TransportServer":
+            out["listener"] = (r.port, r.auth_secret, r._ssl_ctx is not None,
+                               r.transport is sampler.transport)
+    reader = cc.maintenance_reader
+    if reader is not None:
+        t = reader._transport
+        out["maintenance"] = (type(t).__name__, t.num_partitions if hasattr(t, "_dir") else
+                              t._addr, reader._offsets_path, reader._expiration_ms,
+                              getattr(t, "_auth_secret", None))
+    return out
+
+
 @pytest.mark.parametrize("props", [
-    {"metric.sampler.mode": "reporter"},
-    {"metric.sampler.mode": "prometheus"},
-    {"metric.sampler.mode": "reporter", "sample.store.dir": "/nonexistent/store",
+    {"metric.sampler.mode": "reporter", "num.metric.fetchers": "3"},
+    {"metric.sampler.mode": "prometheus", "prometheus.server.endpoint": "http://127.0.0.1:9"},
+    {"metric.sampler.mode": "reporter", "sample.store.dir": "{tmp}/store",
      "metric.sampler.class": "cruise_control_tpu_torch.monitor.sampler.SyntheticWorkloadSampler"},
-    {"metrics.transport.listen.port": "19092"},
-    {"maintenance.event.transport.dir": "/nonexistent/bus"},
-    {"maintenance.event.transport.address": "127.0.0.1:19093"},
+    {"metric.sampler.mode": "reporter", "sample.store.dir": "{tmp}/store",
+     "metrics.transport.listen.port": "{port}", "metrics.transport.auth.secret.file": "{secret}"},
+    {"maintenance.event.transport.dir": "{tmp}/bus", "maintenance.plan.expiration.ms": "60000"},
+    {"maintenance.event.transport.address": "127.0.0.1:19093",
+     "maintenance.event.transport.auth.secret.file": "{secret}",
+     "maintenance.event.offsets.path": "{tmp}/off.json"},
 ], ids=["reporter", "prometheus", "log-sample-store", "metrics-listener",
         "maintenance-dir", "maintenance-address"])
-def test_missing_module_paths_raise_config_error(props):
-    with pytest.raises(ConfigError, match=r"ROADMAP Queue 1 item 3"):
-        _build(props)
+def test_missing_module_paths_raise_config_error(props, tmp_path):
+    """The paths that raised ``ConfigError`` until the port had the
+    ingestion edge (the reporter and Prometheus modes, the log sample store,
+    the bus listener, both maintenance transports): each now builds, and
+    wires the classes, partitions, fetchers, intervals and paths the JAX
+    package's ``build_app`` wires from the same properties."""
+    from cruise_control_tpu.main import build_app as jbuild_app
+    secret = tmp_path / "bus.secret"
+    secret.write_text("bus-secret\n")
+    port = _free_port()
+    props = {k: v.format(tmp=tmp_path, port=port, secret=secret) for k, v in props.items()}
+    got = {}
+    for name in ("torch", "jax"):
+        if name == "torch":
+            app = _build(props)
+        else:
+            jprops = {k: v.replace("cruise_control_tpu_torch.", "cruise_control_tpu.")
+                      for k, v in dict(DEMO, **props).items()}
+            app = jbuild_app(JConfig(jprops), port=0)
+        try:
+            got[name] = _wiring(app)
+        finally:
+            # The listener (when wired) is closed before the other package
+            # binds the same port.
+            _close(app)
+    assert got["torch"] == got["jax"]
+    wired = got["torch"]
+    assert ("fetchers" in wired) == (props.get("metric.sampler.mode") == "reporter"
+                                     and "metric.sampler.class" not in props)
+    assert ("listener" in wired) == ("metrics.transport.listen.port" in props)
+    assert ("maintenance" in wired) == any(k.startswith("maintenance.") for k in props)
+    assert ("loaders" in wired) == ("sample.store.dir" in props)
 
 
 def test_build_app_takes_a_cluster_and_its_monitor():

@@ -13,6 +13,7 @@ packages agree only within one process, which is why they run side by side.
 
 import dataclasses
 import json
+import os
 
 import numpy as np
 import pytest
@@ -323,6 +324,148 @@ def test_file_sample_store_bounded_retention_and_broker_samples(tmp_path):
     assert n == len(got_p) + len(got_b) and len(got_p) <= 10 and len(got_b) <= 10
     assert max(s.time_ms for s in got_p) == 24.0 == max(s.time_ms for s in got_b)
     assert NoopSampleStore().load_samples(got_p.append, got_b.append) == 0
+
+
+def _seeded_samples(pkg, seed, n_partition=40, n_broker=12):
+    """Numpy-seeded partition and broker samples in package ``pkg``'s
+    classes (``samples`` module)."""
+    rng = np.random.default_rng(seed)
+    ps = []
+    for i in range(n_partition):
+        s = pkg.PartitionMetricSample(broker_id=int(rng.integers(0, 5)), topic=f"T{i % 7}",
+                                      partition=int(rng.integers(0, 50)),
+                                      time_ms=float(rng.integers(0, 10 * W)))
+        s.metrics = rng.uniform(0, 100, size=s.metrics.shape)
+        ps.append(s)
+    bs = []
+    for i in range(n_broker):
+        b = pkg.BrokerMetricSample(broker_id=i % 5, time_ms=float(rng.integers(0, 10 * W)))
+        b.metrics = rng.uniform(0, 100, size=b.metrics.shape)
+        bs.append(b)
+    return ps, bs
+
+
+def _log_store(store_mod, transport_mod, root, **kw):
+    return store_mod.LogSampleStore(
+        transport_mod.FileTransport(os.path.join(root, "partition-samples")),
+        transport_mod.FileTransport(os.path.join(root, "broker-samples")), **kw)
+
+
+def _replayed(store):
+    got_p, got_b = [], []
+    n = store.load_samples(got_p.append, got_b.append)
+    assert n == len(got_p) + len(got_b)
+    return (sorted(json.dumps(s.to_dict(), sort_keys=True) for s in got_p),
+            sorted(json.dumps(s.to_dict(), sort_keys=True) for s in got_b))
+
+
+def test_log_sample_store_directories_replay_across_packages(tmp_path):
+    """The same samples stored by both packages give the same segment files,
+    byte for byte (entity-hash partitioning included), and a directory
+    written by either package replays in the other, with 4 loaders, to the
+    same samples."""
+    from cruise_control_tpu.monitor import sample_store as jstore
+    from cruise_control_tpu.reporter import transport as jtransport
+    from cruise_control_tpu_torch.monitor import sample_store as tstore
+    from cruise_control_tpu_torch.reporter import transport as ttransport
+    stored = registry().counter("Monitor.stored-samples")
+    roots = {}
+    for name, smod, tmod, pkg in (("jax", jstore, jtransport, jsamples),
+                                  ("torch", tstore, ttransport, tsamples)):
+        roots[name] = str(tmp_path / name)
+        store = _log_store(smod, tmod, roots[name])
+        for seed in range(3):
+            before = stored.count
+            ps, bs = _seeded_samples(pkg, seed)
+            store.store_samples(ps, bs)
+            if name == "torch":
+                assert stored.count == before + len(ps) + len(bs)
+    for sub in ("partition-samples", "broker-samples"):
+        files = sorted(os.listdir(os.path.join(roots["jax"], sub)))
+        assert files == sorted(os.listdir(os.path.join(roots["torch"], sub)))
+        for name in files:
+            with open(os.path.join(roots["jax"], sub, name), "rb") as a, \
+                    open(os.path.join(roots["torch"], sub, name), "rb") as b:
+                assert a.read() == b.read(), (sub, name)
+    want = _replayed(_log_store(jstore, jtransport, roots["jax"], num_loaders=4))
+    assert len(want[0]) == 3 * 40 and len(want[1]) == 3 * 12
+    assert _replayed(_log_store(tstore, ttransport, roots["jax"], num_loaders=4)) == want
+    assert _replayed(_log_store(jstore, jtransport, roots["torch"], num_loaders=3)) == want
+
+
+@pytest.mark.parametrize("transport", ["in_process", "file"])
+def test_log_sample_store_retention_equals_jax(tmp_path, transport):
+    """A partition past ``max_records_per_partition`` is trimmed to half of
+    it, keeping the newest records: the same records as the JAX package's
+    store after the same appends, over both transports; the lazy initial
+    count of an existing log is the same too."""
+    from cruise_control_tpu.monitor import sample_store as jstore
+    from cruise_control_tpu.reporter import transport as jtransport
+    from cruise_control_tpu_torch.monitor import sample_store as tstore
+    from cruise_control_tpu_torch.reporter import transport as ttransport
+    logs = {}
+    for name, smod, tmod, pkg in (("jax", jstore, jtransport, jsamples),
+                                  ("torch", tstore, ttransport, tsamples)):
+        if transport == "file":
+            make = [tmod.FileTransport(str(tmp_path / name / d), 3) for d in "pb"]
+        else:
+            make = [tmod.InProcessTransport(3) for _ in "pb"]
+        store = smod.LogSampleStore(*make, max_records_per_partition=10)
+        for seed in range(4):
+            store.store_samples(*_seeded_samples(pkg, seed, n_partition=17, n_broker=9))
+        if transport == "file":
+            # A second store over the same logs counts them lazily.
+            store = smod.LogSampleStore(*[tmod.FileTransport(str(tmp_path / name / d), 3)
+                                          for d in "pb"], max_records_per_partition=10)
+            store.store_samples(*_seeded_samples(pkg, 9, n_partition=5, n_broker=4))
+        logs[name] = [[t.poll(p, 0, 1000)[0] for p in range(3)] for t in make]
+    assert logs["torch"] == logs["jax"]
+    counts = [len(recs) for t in logs["torch"] for recs in t]
+    assert max(counts) <= 10 and min(counts) >= 5
+
+
+def test_log_sample_store_restart_through_task_runner(tmp_path):
+    """A monitor whose ticks persisted to a log store, restarted on the same
+    directory: the port's replay (4 loaders) gives back the windows and
+    valid partitions it had.  The JAX package's loaders apply as they parse,
+    so its aggregator drops the older samples of windows a faster loader
+    closed (ROADMAP Queue 3): its valid partitions after the restart are
+    never more than the port's."""
+    from cruise_control_tpu.monitor import sample_store as jstore
+    from cruise_control_tpu.reporter import transport as jtransport
+    from cruise_control_tpu_torch.monitor import sample_store as tstore
+    from cruise_control_tpu_torch.reporter import transport as ttransport
+    states = {}
+    for name, pkg, lmod, smod, rmod, stmod, tmod in (
+            ("jax", jmeta, jlm, jsampler, jrunner, jstore, jtransport),
+            ("torch", tmeta, tlm, tsampler, trunner, tstore, ttransport)):
+        backend = _random_topology(pkg, seed=7)
+        root = str(tmp_path / name)
+        out = []
+        for restart in range(2):
+            lm = lmod.LoadMonitor(pkg.MetadataClient(backend, ttl_ms=0), num_windows=5,
+                                  window_ms=W, min_samples_per_window=1)
+            runner = rmod.LoadMonitorTaskRunner(
+                lm, smod.SyntheticWorkloadSampler(seed=7),
+                sample_store=_log_store(stmod, tmod, root, num_loaders=4),
+                sampling_interval_ms=W, clock=lambda: 0.0)
+            runner.start()
+            if not restart:
+                for w in range(7):
+                    runner.run_sampling_once(now_ms=w * W + 500)
+            runner.shutdown()
+            st = lm.state().to_dict()
+            out.append(dict(windows=st["numValidWindows"],
+                            valid=st["monitoredPartitionsPercentage"],
+                            available=lm.partition_aggregator.num_available_windows(),
+                            generation=lm.partition_aggregator.generation))
+        states[name] = out
+    (jbefore, jafter), (tbefore, tafter) = states["jax"], states["torch"]
+    assert tbefore == jbefore
+    assert (tbefore["windows"], tbefore["valid"], tbefore["generation"]) == (5, 100.0, 7)
+    # The replay applies each of the 7 x 30 stored samples once, all accepted.
+    assert tafter == dict(tbefore, generation=7 * 30)
+    assert jafter["windows"] == tafter["windows"] and jafter["valid"] <= tafter["valid"]
 
 
 def test_task_runner_states_and_pause():
