@@ -34,7 +34,11 @@ BASELINE #3 (``main.build_app`` in reporter mode: 200 reporter agents, a
 share of them publishing from a child process over the authenticated TCP
 bus, the consuming sampler, the model on the card and a rebalance over HTTP,
 a restart that replays the log sample store, a maintenance plan fixed
-through the broker simulator's process, and the Prometheus sampler); and the
+through the broker simulator's process, and the Prometheus sampler); then
+the platform layers at BASELINE #3 (``main.build_app`` with the warmup
+daemon on, the lane-chunk planner, the memory ledger and its headroom guard,
+one injected device failover; the service's persistent kernel-build cache is
+started twice in the ``main`` phase); and the
 resident steady state of bench config #6 at 1M replicas.  Each phase counts the kernel's launches.  Prints one JSON object
 per phase; the last line is ``{"ok": true, "device": {...}}``.  Exits
 non-zero, printing no result, when CUDA is unavailable or the port's package
@@ -148,6 +152,9 @@ FACADE_CONFIG = {
     "solver.shutdown.grace.ms": "5000",
     # No phase reads the sensor history rings (the SLO evaluator's input).
     "obs.history.enabled": "false",
+    # The warmup daemon only where a phase is about it (``platform``): the
+    # phases built on this config ran without one while compile.* was inert.
+    "compile.warmup.enabled": "false",
 }
 FACADE_WAIT_S = 120
 FACADE_HOT_PARTITIONS = 64
@@ -170,7 +177,12 @@ MAIN_PROPERTIES = {
     "partition.metrics.window.ms": "400",
     "metric.sampling.interval.ms": "150",
     "default.goals": FACADE_CONFIG["default.goals"],
+    "compile.warmup.enabled": "false",
 }
+# The main phase's second and third starts: the persistent kernel-build
+# cache on, under this directory (git-ignored with the rest of ops/_build/).
+MAIN_CACHE_DIR = os.path.join(REPO, "cruise_control_tpu_torch", "ops", "_build",
+                              "smoke-compile-cache")
 MAIN_TIMEOUT_S = 120
 MAIN_EXIT_S = 30
 # The ingest phase: the service main.build_app wires in reporter mode over
@@ -229,6 +241,18 @@ for line in sys.stdin:
     print(json.dumps({"records": n, "seconds": time.perf_counter() - t0}), flush=True)
 bus.close()
 """
+# The platform phase: the servlet phase's service (no precompute daemon, no
+# anomaly round inside the phase) with the warmup daemon on, warming the
+# 4-lane width; the remove batch's lanes (a broker each); how long the warmup
+# may take; the injected device-loss and kernel-fault messages (as the CUDA
+# runtime words them) and the goal of the solves they hit.
+PLATFORM_CONFIG = dict(SERVLET_CONFIG, **{"compile.warmup.enabled": "true",
+                                          "compile.warmup.lanes": "4"})
+PLATFORM_LANES = 16
+PLATFORM_WARMUP_S = 600
+PLATFORM_DEVICE_LOSS = "CUDA error: uncorrectable ECC error encountered"
+PLATFORM_KERNEL_FAULT = "CUDA error: an illegal memory access was encountered"
+PLATFORM_FAILOVER_GOAL = "RackAwareGoal"
 RESIDENT = dict(HEALTHY, seed=3143)
 RESIDENT_MUTATIONS = 64
 RESIDENT_ROUNDS = 3
@@ -2077,25 +2101,75 @@ def main_phase(timeout_s=MAIN_TIMEOUT_S, device="cuda"):
     card: the time to its listening line, one ``cccli rebalance --dryrun
     true`` against it, then SIGTERM, which must end the process with exit
     code 0 within MAIN_EXIT_S (a thread left running would hold it).  Then
-    the same command with no visible card must exit non-zero without
-    listening."""
+    twice more with the persistent kernel-build cache on under
+    MAIN_CACHE_DIR (emptied first): the first of these starts builds the
+    aggregate kernel into the cache's versioned directory, the second loads
+    it from there (``GET /compile_cache`` shows the entry, warm, and the
+    library is not rebuilt).  Then the same command with no visible card
+    must exit non-zero without listening."""
+    tmp = tempfile.mkdtemp(prefix="main-phase-")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "cruise_control_tpu_torch.main", "--demo", "--port", "0",
+           "--config"]
+    shutil.rmtree(MAIN_CACHE_DIR, ignore_errors=True)
+    cached = dict(MAIN_PROPERTIES, **{"compile.persistent.cache.enabled": "true",
+                                      "compile.persistent.cache.path": MAIN_CACHE_DIR})
+    out = serve_once(cmd, env, write_properties(tmp, "demo", MAIN_PROPERTIES), device, tmp,
+                     timeout_s)
+    caches = {}
+    for start in ("cache_build", "cache_load"):
+        got = serve_once(cmd, env, write_properties(tmp, start, cached), device, tmp,
+                         timeout_s, read_cache=True)
+        cache = got.pop("persistent_cache")
+        libs = [os.path.join(cache["active_dir"] or "", f)
+                for f in os.listdir(cache["active_dir"] or tmp) if f.endswith(".so")]
+        check(cache["enabled"] and (cache["active_dir"] or "").startswith(MAIN_CACHE_DIR)
+              and cache["applies_to"] == "this process" and len(libs) == 1
+              and cache["entries"] == 1,
+              f"main: {start}: the persistent cache holds no library: {cache}")
+        got.update(warm=cache["warm"], entries=cache["entries"], bytes=cache["bytes"],
+                   library_mtime=os.stat(libs[0]).st_mtime,
+                   versioned_dir=os.path.relpath(cache["active_dir"], MAIN_CACHE_DIR))
+        caches[start] = got
+    build, load = caches["cache_build"], caches["cache_load"]
+    check(not build["warm"] and load["warm"], f"main: cache warm flags {build['warm']}, "
+          f"{load['warm']} (cold build, then warm load expected)")
+    check(load["library_mtime"] == build["library_mtime"],
+          "main: the second start rebuilt the cached library")
+    out.update(caches)
+    no_card = subprocess.run(cmd + [write_properties(tmp, "demo", MAIN_PROPERTIES), "--device",
+                                    "cuda"], cwd=REPO, env=dict(env, CUDA_VISIBLE_DEVICES=""),
+                             capture_output=True, text=True, timeout=timeout_s)
+    check(no_card.returncode != 0 and "listening" not in no_card.stdout,
+          f"main: --device cuda without a card exited {no_card.returncode}")
+    out["no_card"] = dict(exit_code=no_card.returncode, stderr=no_card.stderr.strip()[-200:])
+    shutil.rmtree(tmp, ignore_errors=True)
+    shutil.rmtree(MAIN_CACHE_DIR, ignore_errors=True)
+    return out
+
+
+def write_properties(tmp, name, props):
+    path = os.path.join(tmp, f"{name}.properties")
+    with open(path, "w") as f:
+        f.write("".join(f"{k}={v}\n" for k, v in props.items()))
+    return path
+
+
+def serve_once(cmd, env, props, device, tmp, timeout_s, read_cache=False):
+    """One start of the service: listening line, the first 200 of ``cccli
+    rebalance --dryrun true`` (no hard goal violated), with ``read_cache``
+    the ``persistent_cache`` block of ``GET /compile_cache``, then SIGTERM
+    and exit code 0."""
     import queue
     import signal
     import threading
     from cruise_control_tpu_torch.analyzer.goals.registry import DEFAULT_HARD_GOALS
     from cruise_control_tpu_torch.main import LISTENING
-    tmp = tempfile.mkdtemp(prefix="main-phase-")
-    props = os.path.join(tmp, "demo.properties")
-    with open(props, "w") as f:
-        f.write("".join(f"{k}={v}\n" for k, v in MAIN_PROPERTIES.items()))
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    cmd = [sys.executable, "-m", "cruise_control_tpu_torch.main", "--demo", "--port", "0",
-           "--config", props, "--device"]
     out = {}
     with open(os.path.join(tmp, "stderr.log"), "w+") as err:
         t0 = time.monotonic()
-        proc = subprocess.Popen(cmd + [device], cwd=REPO, env=env, stdout=subprocess.PIPE,
-                                stderr=err, text=True)
+        proc = subprocess.Popen(cmd + [props, "--device", device], cwd=REPO, env=env,
+                                stdout=subprocess.PIPE, stderr=err, text=True)
         try:
             lines = queue.Queue()
             threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout],
@@ -2126,6 +2200,10 @@ def main_phase(timeout_s=MAIN_TIMEOUT_S, device="cuda"):
             out.update(first_200_after_s=time.monotonic() - t0, request_wall_s=time.monotonic() - t1,
                        goals=len(body["result"]["goals"]),
                        replica_moves=body["result"]["numInterBrokerReplicaMovements"])
+            if read_cache:
+                with urllib.request.urlopen(f"{base.rstrip('/')}/kafkacruisecontrol/"
+                                            "compile_cache") as resp:
+                    out["persistent_cache"] = json.load(resp)["persistent_cache"]
             t0 = time.monotonic()
             proc.send_signal(signal.SIGTERM)
             rc = proc.wait(timeout=MAIN_EXIT_S)
@@ -2139,12 +2217,6 @@ def main_phase(timeout_s=MAIN_TIMEOUT_S, device="cuda"):
                 proc.kill()
                 proc.wait()
         out["exit_code"] = proc.returncode
-    no_card = subprocess.run(cmd + ["cuda"], cwd=REPO, env=dict(env, CUDA_VISIBLE_DEVICES=""),
-                             capture_output=True, text=True, timeout=timeout_s)
-    check(no_card.returncode != 0 and "listening" not in no_card.stdout,
-          f"main: --device cuda without a card exited {no_card.returncode}")
-    out["no_card"] = dict(exit_code=no_card.returncode, stderr=no_card.stderr.strip()[-200:])
-    shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -2562,6 +2634,267 @@ def ingest_phase(aggregate, props, device="cuda"):
     return out
 
 
+def platform_phase(aggregate, props, device="cuda"):
+    """The platform layers at BASELINE #3, through ``main.build_app`` on a
+    fresh monitored cluster (sampling paused after ``start_up``, so the model
+    holds still):
+
+    (a) a cold app (warmup off): its first dry-run rebalance over HTTP;
+    (b) the app of PLATFORM_CONFIG, warmup on at ``compile.warmup.lanes=4``:
+        the daemon ends ``done`` with every task warmed, no error and kernel
+        launches counted (per task, with its wall);
+    (c) a dry-run rebalance over HTTP adds hits and 0 compiles;
+    (d) ``GET /compile_cache`` and ``GET /memory`` answer 200 (schema-valid),
+        the ``resident-model`` live bytes are > 0, and ``verify_balanced``
+        holds against ``torch.cuda.memory_stats``; ``/state`` carries
+        ``memoryState``;
+    (e) a PLATFORM_LANES-lane remove batch on the 4-lane width the warmup ran
+        goes as 4-lane blocks, every lane judged by the verifier; then the
+        headroom fraction is set from the 4-lane cost row so that the guard
+        shrinks the batch onto 2-lane blocks (judged again), then so that it
+        refuses it (``memory_refused``, ``Memory.headroom-refusals`` + 1);
+    (f) one injected device-loss error: the response is ``degraded``,
+        ``Resilience.solver-cpu-failovers`` + 1 and ``/health``'s device probe
+        degraded; the next solve on the card clears it and launches the
+        kernel; one injected illegal-address error raises."""
+    import dataclasses
+    import torch
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.client import cccli
+    from cruise_control_tpu_torch.common.metrics import registry
+    from cruise_control_tpu_torch.compilesvc.telemetry import telemetry
+    from cruise_control_tpu_torch.config import CruiseControlConfig
+    from cruise_control_tpu_torch.main import build_app
+    from cruise_control_tpu_torch.obsvc import memory
+    from cruise_control_tpu_torch.analyzer.options import OptimizationOptions
+    from cruise_control_tpu_torch.resilience import SOLVER_FAILOVER_SENSOR
+    from cruise_control_tpu_torch.servlet.schemas import ENDPOINT_SCHEMAS, validate
+
+    cluster = monitored_cluster(props)
+    out = dict(replicas=cluster.meta.num_replicas, brokers=cluster.meta.num_brokers,
+               bootstrap_s=cluster.bootstrap_s)
+    tel = telemetry()
+
+    def serve(config):
+        cfg = CruiseControlConfig(config)
+        app = build_app(cfg, port=0, device=device, metadata_backend=cluster.backend,
+                        monitor=(cluster.lm, cluster.runner))
+        app.start()
+        return cfg, app, cccli.Responder(f"http://127.0.0.1:{app.port}", poll_interval_s=0.05)
+
+    def request(responder, endpoint, method="GET", params=None):
+        spec = cccli.ENDPOINTS.get(endpoint) or cccli.EndpointSpec(endpoint, method)
+        body, wall, launches = http_call(aggregate, responder, spec, params or {}, device)
+        status = body.pop("httpStatus")
+        check(status == 200, f"platform: {endpoint} answered {status}: {str(body)[:300]}")
+        if endpoint in ENDPOINT_SCHEMAS:
+            validate(body, ENDPOINT_SCHEMAS[endpoint])
+        return body, dict(wall_s=wall, kernel_launches=launches)
+
+    # (a) the cold app: no warmup, no start_up (its monitor stays the
+    # phase's); the first rebalance of a fresh facade and solver.
+    _, app, responder = serve(dict(PLATFORM_CONFIG, **{"compile.warmup.enabled": "false"}))
+    try:
+        body, out["cold_rebalance"] = request(responder, "rebalance", "POST",
+                                              {"dryrun": "true"})
+    finally:
+        app.stop()
+    check(out["cold_rebalance"]["kernel_launches"] > 0, "platform: the cold rebalance "
+          "launched the kernel 0 times")
+
+    # (b) the warm app: a fresh ledger, the daemon's tasks timed.
+    memory.set_memory_ledger(None)
+    cfg, app, responder = serve(PLATFORM_CONFIG)
+    cc = app.cc
+    tasks = {}
+
+    def build_timed(orig=cc._build_warmup_daemon):
+        daemon = orig()
+
+        def timed(key, fn):
+            def run():
+                aggregate.LAUNCHES = 0
+                t0 = time.monotonic()
+                fn()
+                sync(device)
+                tasks[str(key[0]) + ("" if len(key) < 3 else f"-{key[2]}")] = dict(
+                    wall_s=time.monotonic() - t0, kernel_launches=aggregate.LAUNCHES)
+            return run
+
+        daemon._tasks = [(k, timed(k, fn)) for k, fn in daemon._tasks]
+        return daemon
+
+    cc._build_warmup_daemon = build_timed
+    failovers0 = registry().counter(SOLVER_FAILOVER_SENSOR).count
+    try:
+        t0 = time.monotonic()
+        cc.start_up()
+        cc.pause_sampling("platform phase")
+        cc.warmup_daemon.join(timeout=PLATFORM_WARMUP_S)
+        snap = cc.warmup_daemon.snapshot()
+        check(snap["state"] == "done" and snap["warmed"] == snap["tasks"] == 4
+              and not snap["errors"], f"platform: warmup {snap}")
+        # The solving tasks launch the kernel (the delta applies' warm task
+        # runs index kernels only, the relaxation's is a no-op while it is off).
+        check(all(tasks[k]["kernel_launches"] > 0 for k in ("proposals", "whatif-4")),
+              f"platform: a warm solve launched the kernel 0 times: {tasks}")
+        out["warmup"] = dict(wall_s=time.monotonic() - t0, tasks=tasks)
+
+        # (c) the first rebalance after warmup: hits, no compile.
+        compiles, hits = tel.compile_count(), tel.hit_count()
+        body, out["warm_rebalance"] = request(responder, "rebalance", "POST", {"dryrun": "true"})
+        check(tel.compile_count() == compiles and tel.hit_count() > hits,
+              f"platform: the warm rebalance compiled {tel.compile_count() - compiles}, "
+              f"hit {tel.hit_count() - hits}")
+        check(not set(body["result"]["violatedGoalsAfter"]) & set(cfg.goal_names("hard.goals")),
+              f"platform: hard goals violated {body['result']['violatedGoalsAfter']}")
+        out["warm_rebalance"]["hits"] = tel.hit_count() - hits
+
+        # (d) the admin views and the ledger against the card's allocator.
+        cache, _ = request(responder, "compile_cache")
+        check(cache["warmup"]["state"] == "done", f"platform: compile_cache {cache['warmup']}")
+        mem, _ = request(responder, "memory")
+        live = mem["subsystems"]["resident-model"]["liveBytes"]
+        ledger = memory.memory_ledger()
+        problems = ledger.verify_balanced()
+        check(live > 0 and not problems, f"platform: ledger {problems}, resident {live} B")
+        state, _ = request(responder, "state")
+        check("memoryState" in state["AnalyzerState"], "platform: /state has no memoryState")
+        out["memory"] = dict(resident_live_bytes=live, tracked_bytes=mem["reconcile"]["trackedBytes"],
+                             drift_bytes=mem["reconcile"]["driftBytes"],
+                             backend_in_use_bytes=(mem["reconcile"]["backend"] or {}).get(
+                                 "bytes_in_use"),
+                             device_budget_bytes=mem["deviceBudgetBytes"],
+                             cost_rows=len(mem["costs"]))
+        out["compile_cache"] = dict(buckets=cache["telemetry"]["buckets"],
+                                    compiled_lane_widths=cache["compiled_lane_widths"])
+
+        # (e) the lane batch: 4-lane blocks, then shrunk, then refused.
+        snap_state, snap_pl, snap_meta = cc.cluster_model_snapshot()
+        hard = cfg.goal_names("hard.goals")
+        sets = [[int(b)] for b in snap_meta.broker_ids[:PLATFORM_LANES]]
+        r_pad = snap_state.num_replicas_padded
+        base = f"R{r_pad}-C{min(512, r_pad)}"
+
+        blocks = []
+        run_block = cc.optimizer._run_lane_block
+
+        def counted_block(gctx, seed, goals, num_candidates, alive_s, *rest):
+            blocks.append(int(alive_s.shape[0]))
+            return run_block(gctx, seed, goals, num_candidates, alive_s, *rest)
+
+        cc.optimizer._run_lane_block = counted_block
+
+        def batch(what):
+            blocks.clear()
+            aggregate.LAUNCHES = 0
+            t0 = time.monotonic()
+            res = cc.remove_brokers_batch(sets)
+            sync(device)
+            summary = dict(wall_s=time.monotonic() - t0, kernel_launches=aggregate.LAUNCHES,
+                           blocks=list(blocks), refused=res.memory_refused,
+                           lane_bytes_after=ledger.live_bytes("lane-batch"))
+            launches = summary["kernel_launches"]
+            check(summary["lane_bytes_after"] == 0, f"platform: {what}: lane posts unbalanced")
+            if res.memory_refused:
+                return res, summary
+            check(launches > 0, f"platform: {what}: 0 launches")
+            check_removal(res, snap_state, snap_meta, hard, f"platform {what}")
+            judged = []
+            for s, ids in enumerate(res.scenario_sets):
+                row = snap_meta.broker_index[ids[0]]
+                alive = snap_state.alive.clone()
+                alive[row] = False
+                lane_state = dataclasses.replace(snap_state, alive=alive)
+                excluded = frozenset(ids)
+                judged.append(judge(aggregate, f"platform {what}, lane {s}", lane_state,
+                                    snap_pl, snap_meta, res.placement_for(s), device,
+                                    goal_names=hard,
+                                    options=OptimizationOptions(
+                                        excluded_brokers_for_replica_move=excluded,
+                                        excluded_brokers_for_leadership=excluded),
+                                    verifications=("GOAL_VIOLATION", "DEAD_BROKERS"))["ms"])
+            summary["verifier_ms_mean"] = sum(judged) / len(judged)
+            return res, summary
+
+        _, lanes4 = batch("4-lane blocks")
+        check(lanes4["blocks"] == [4] * (PLATFORM_LANES // 4),
+              f"platform: blocks {lanes4['blocks']} for {PLATFORM_LANES} lanes on width 4")
+        row = ledger.costs.row(f"{base}-L4")
+        check(row is not None and row["peak_bytes"] > 0, f"platform: no cost row {base}-L4")
+        budget = ledger.device_budget_bytes()
+        shrinks, refusals = ledger._shrinks.count, ledger._refusals.count
+
+        def headroom(share):
+            ledger.configure(enabled=True, headroom_fraction=share * row["peak_bytes"] / budget,
+                             budget_bytes=0, analysis_mode=ledger.analysis_mode)
+
+        headroom(0.75)      # 2-lane blocks fit, 4-lane ones do not
+        _, lanes2 = batch("shrunk to 2-lane blocks")
+        check(ledger._shrinks.count == shrinks + 1 and lanes2["blocks"] == [2] * (
+            PLATFORM_LANES // 2), f"platform: the guard did not shrink the batch: {lanes2}")
+        headroom(0.2)       # not even one lane fits
+        refused, lanes0 = batch("refused")
+        check(refused.memory_refused and refused.preempted
+              and ledger._refusals.count == refusals + 1 and lanes0["kernel_launches"] == 0
+              and not lanes0["blocks"], f"platform: the guard did not refuse the batch: {lanes0}")
+        ledger.configure(enabled=True, headroom_fraction=cfg["memory.headroom.fraction"],
+                         budget_bytes=0, analysis_mode=ledger.analysis_mode)
+        cc.optimizer._run_lane_block = run_block
+        out["lanes"] = dict(lanes=PLATFORM_LANES, cost_row=row, budget_bytes=budget,
+                            four_lane_blocks=lanes4, shrunk=lanes2, refused=lanes0)
+
+        # (f) device failover, and a fault of the port's own.
+        real = GoalOptimizer.optimizations
+        injected = []
+
+        def inject(message):
+            def flaky(self, *args, **kwargs):
+                if not injected:
+                    injected.append(message)
+                    raise RuntimeError(message)
+                return real(self, *args, **kwargs)
+            return flaky
+
+        GoalOptimizer.optimizations = inject(PLATFORM_DEVICE_LOSS)
+        try:
+            body, failover = request(responder, "rebalance", "POST",
+                                     {"dryrun": "true", "goals": PLATFORM_FAILOVER_GOAL})
+        finally:
+            GoalOptimizer.optimizations = real
+        health, _ = request(responder, "health")
+        check(body.get("degraded") is True and injected
+              and registry().counter(SOLVER_FAILOVER_SENSOR).count == failovers0 + 1
+              and health["probes"]["device"]["status"] == "degraded",
+              f"platform: the failover: degraded={body.get('degraded')}, health {health}")
+        body, clean = request(responder, "rebalance", "POST",
+                              {"dryrun": "true", "goals": PLATFORM_FAILOVER_GOAL})
+        health, _ = request(responder, "health")
+        check("degraded" not in body and clean["kernel_launches"] > 0
+              and health["probes"]["device"]["status"] == "ready",
+              f"platform: the next card solve: {clean}, health {health['probes']['device']}")
+        injected.clear()
+        GoalOptimizer.optimizations = inject(PLATFORM_KERNEL_FAULT)
+        try:
+            cc.rebalance([PLATFORM_FAILOVER_GOAL], dryrun=True)
+            raised = None
+        except RuntimeError as e:
+            raised = str(e)
+        finally:
+            GoalOptimizer.optimizations = real
+        check(raised == PLATFORM_KERNEL_FAULT
+              and registry().counter(SOLVER_FAILOVER_SENSOR).count == failovers0 + 1,
+              f"platform: the illegal-address error did not raise ({raised})")
+        out["failover"] = dict(degraded_wall_s=failover["wall_s"],
+                               degraded_kernel_launches=failover["kernel_launches"],
+                               next_card_solve=clean, kernel_fault_raised=True)
+    finally:
+        app.stop()
+        cc.shutdown()
+    out["cuda_memory_allocated_bytes"] = torch.cuda.memory_allocated() if device == "cuda" else 0
+    return out
+
+
 def resident_phase(aggregate, props, mutations, rounds, device="cuda"):
     """Bench config #6: one full freeze seeds the resident service from a
     builder of the generated cluster; a base solve of the six hard goals;
@@ -2881,8 +3214,17 @@ def main():
     # ---- the ingestion edge at BASELINE #3: reporters, the bus (in process
     # and over TCP), the log store's restart, a maintenance plan, Prometheus.
     emit("ingest", **ingest_phase(aggregate, BASELINE3))
+    # ---- the platform layers at BASELINE #3: warmup, lane chunks, the memory
+    # ledger and its guard, device failover.
+    emit("platform", **platform_phase(aggregate, BASELINE3))
     emit("resident", **resident_phase(aggregate, RESIDENT, RESIDENT_MUTATIONS,
                                       RESIDENT_ROUNDS))
+    # The one CPU rerun of the whole run is the platform phase's injected one.
+    from cruise_control_tpu_torch.common.metrics import registry
+    from cruise_control_tpu_torch.resilience import SOLVER_FAILOVER_SENSOR
+    failovers = registry().counter(SOLVER_FAILOVER_SENSOR).count
+    check(failovers == 1, f"{failovers} solver CPU failovers in the run, 1 injected")
+    emit("failovers", solver_cpu_failovers=failovers)
 
     print(json.dumps({"kernels": [{
         "name": "broker_channel_sums",

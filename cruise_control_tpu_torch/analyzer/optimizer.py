@@ -41,12 +41,15 @@ from cruise_control_tpu_torch.analyzer.solver import (
 from cruise_control_tpu_torch.common.actions import ExecutionProposal, ProposalSummary
 from cruise_control_tpu_torch.common.exceptions import OptimizationFailureError
 from cruise_control_tpu_torch.common.metrics import registry
+from cruise_control_tpu_torch.compilesvc.chunking import plan_is_identity
+from cruise_control_tpu_torch.compilesvc.service import compile_service
 from cruise_control_tpu_torch.model.state import ClusterMeta, ClusterState, Placement
 from cruise_control_tpu_torch.model.stats import ClusterModelStats, compute_stats
 from cruise_control_tpu_torch.obsvc.convergence import convergence as _convergence
 from cruise_control_tpu_torch.obsvc.execution import execution as _execution
 from cruise_control_tpu_torch.obsvc.execution import path_histogram
 from cruise_control_tpu_torch.obsvc.fidelity import fidelity as _fidelity
+from cruise_control_tpu_torch.obsvc.memory import SUBSYS_LANES, measure_bytes, memory_ledger
 
 LOG = logging.getLogger(__name__)
 
@@ -223,8 +226,8 @@ class BatchScenarioResult:
     # cover only the goal prefix that ran; every lane's placement is the
     # anytime result after that prefix.
     preempted: bool = False
-    # The JAX package's memory guard can refuse a dispatch; the port has no
-    # lane planner, so this stays False.
+    # The memory ledger's headroom guard refused the dispatch: no lane ran
+    # (no goal columns, stranded -1, placements the seed).
     memory_refused: bool = False
 
     @property
@@ -594,6 +597,13 @@ class GoalOptimizer:
     def _batch_scenarios(self, state, placement, meta, scenario_sets, revive,
                          options, goals, num_candidates, warm_start,
                          budget) -> BatchScenarioResult:
+        """The lane runner behind both what-if kinds, routed through the
+        compile service's lane-chunk plan (the JAX package's
+        ``_run_mask_scenarios``): an S-lane batch is split into blocks at the
+        lane widths already run (or canonical ladder widths), padding lanes
+        duplicate the last real lane's masks and are trimmed from the
+        result, and the memory ledger's headroom guard may shrink the plan
+        onto narrower blocks or refuse the dispatch (``memory_refused``)."""
         options = options or OptimizationOptions()
         goals = (list(goals) if goals is not None
                  else get_goals_by_priority(self.goal_names))
@@ -601,10 +611,62 @@ class GoalOptimizer:
         # feeds placement-independent statics; every lane recomputes its
         # aggregates from its own (possibly warm-started) placement.
         gctx = build_context(state, placement, meta, self.constraint, options)
-        masks = _scenario_masks(gctx, state, meta, scenario_sets, revive)
+        alive_s, excl_move_s, excl_lead_s = _scenario_masks(gctx, state, meta, scenario_sets,
+                                                            revive)
         seed = placement if warm_start is None else warm_start
-        rounds, moves, violated, stranded, placements = self._run_lanes(
-            gctx, seed, goals, num_candidates, *masks, budget)
+        s_n = len(scenario_sets)
+        svc = compile_service()
+        lane_key = svc.lane_key([g.name for g in goals], state.num_replicas_padded,
+                                state.num_brokers_padded, num_candidates)
+        plan = svc.plan_lanes(s_n, lane_key)
+        # Headroom guard: the cost ledger projects peak bytes for the plan's
+        # widest lane block; a projection over the headroom fraction of the
+        # device budget re-chunks onto narrower widths, and when nothing fits
+        # the dispatch is refused outright.
+        c = min(num_candidates, state.num_replicas_padded)
+        plan, refused = memory_ledger().guard_lane_plan(
+            plan, s_n, f"R{state.num_replicas_padded}-C{c}", svc.policy.lane_ladder,
+            compiled_widths=svc.compiled_lane_widths(lane_key))
+        sets = [list(map(int, ids)) for ids in scenario_sets]
+        if refused:
+            return BatchScenarioResult(
+                scenario_sets=sets, goal_names=[],
+                violated_after=np.zeros((s_n, 0), np.int32),
+                moves=np.zeros((s_n, 0), np.int32),
+                rounds=np.zeros((s_n, 0), np.int32),
+                stranded_after=np.full(s_n, -1, np.int32),
+                final_placements=Placement(
+                    broker=seed.broker.expand(s_n, -1), disk=seed.disk.expand(s_n, -1),
+                    is_leader=seed.is_leader.expand(s_n, -1)),
+                preempted=True, memory_refused=True)
+        if plan_is_identity(plan, s_n):
+            rounds, moves, violated, stranded, placements = self._run_lane_block(
+                gctx, seed, goals, num_candidates, alive_s, excl_move_s, excl_lead_s, budget)
+            svc.note_lanes_compiled(lane_key, s_n)
+        else:
+            blocks = []
+            # Once the budget preempts a block mid-stack, later blocks run
+            # only the same solved-goal prefix so every block's [S, G] stats
+            # stay column-aligned (their lanes still need placements).
+            goal_limit = len(goals)
+            for chunk in plan:
+                # Padding lanes re-run the last real lane.
+                idx = torch.as_tensor(np.minimum(chunk.start + np.arange(chunk.size), s_n - 1),
+                                      device=alive_s.device)
+                out = self._run_lane_block(gctx, seed, goals[:goal_limit], num_candidates,
+                                           alive_s[idx], excl_move_s[idx], excl_lead_s[idx],
+                                           budget)
+                goal_limit = min(goal_limit, out[0].shape[1])
+                svc.note_lanes_compiled(lane_key, chunk.size)
+                n = chunk.n_real
+                pl = out[4]
+                blocks.append(tuple(x[:n] for x in out[:4]) + (Placement(
+                    broker=pl.broker[:n], disk=pl.disk[:n], is_leader=pl.is_leader[:n]),))
+            rounds, moves, violated = (
+                np.concatenate([b[i][:, :goal_limit] for b in blocks], axis=0) for i in range(3))
+            stranded = np.concatenate([b[3] for b in blocks], axis=0)
+            placements = Placement(**{f: torch.cat([getattr(b[4], f) for b in blocks])
+                                      for f in ("broker", "disk", "is_leader")})
         preempted = rounds.shape[1] < len(goals)
         if preempted:
             registry().counter(PREEMPTIONS_SENSOR).inc()
@@ -616,7 +678,7 @@ class GoalOptimizer:
         _convergence().record_batch([g.name for g in goals[:rounds.shape[1]]], rounds,
                                     warm_start=warm_start is not None)
         return BatchScenarioResult(
-            scenario_sets=[list(map(int, ids)) for ids in scenario_sets],
+            scenario_sets=sets,
             goal_names=[g.name for g in goals[:rounds.shape[1]]],
             violated_after=violated,
             moves=moves,
@@ -626,20 +688,43 @@ class GoalOptimizer:
             preempted=preempted,
         )
 
+    def _run_lane_block(self, gctx, seed: Placement, goals, num_candidates,
+                        alive_s, excl_move_s, excl_lead_s, budget):
+        """Ledgered wrapper over :meth:`_run_lanes`: the block's lane tensors
+        (per-lane masks and seed placements) are the transient device bill of
+        a what-if batch, posted to the ``lane-batch`` subsystem for the
+        block's lifetime."""
+        ledger = memory_ledger()
+        lane_bytes = 0
+        if ledger.enabled:
+            lane_bytes = (measure_bytes((alive_s, excl_move_s, excl_lead_s))
+                          + alive_s.shape[0] * measure_bytes(seed))
+            ledger.post(SUBSYS_LANES, lane_bytes, kind="alloc")
+        try:
+            return self._run_lanes(gctx, seed, goals, num_candidates, alive_s, excl_move_s,
+                                   excl_lead_s, budget)
+        finally:
+            if ledger.enabled:
+                ledger.post(SUBSYS_LANES, lane_bytes, kind="free")
+
     def _run_lanes(self, gctx, seed: Placement, goals, num_candidates,
                    alive_s, excl_move_s, excl_lead_s, budget):
-        """The lane runner (the JAX package's ``_run_lane_block_impl``), goal
+        """One lane block (the JAX package's ``_run_lane_block_impl``), goal
         by goal: every lane finishes goal g before any lane starts goal g+1,
         so a budget cuts every lane at the same goal prefix, at least one
         goal always runs, and the [S, G] stats stay column-aligned.  Each
         lane runs its own context (:func:`scenario_context`) at candidate
         width ``min(num_candidates, R_pad)`` from fresh aggregates of its own
-        placement, one lane after another.  Returns (rounds, moves,
-        violated after: i32[S, G]; stranded after the last goal: i32[S];
-        the stacked final placements)."""
+        placement, one lane after another.  Each goal is one solver dispatch
+        over the block (the JAX package's vmapped ``("batch", goal, priors,
+        C)`` family, labelled ``R<R>-C<C>-L<S>``), preceded on the
+        relaxation path by the ``("relax", "frac-batch", …)`` one.  Returns
+        (rounds, moves, violated after: i32[S, G]; stranded after the last
+        goal: i32[S]; the stacked final placements)."""
         s_n = alive_s.shape[0]
         r_pad = gctx.state.num_replicas_padded
         c = min(num_candidates, r_pad)
+        dev = gctx.state.device
         lanes = [scenario_context(gctx, alive_s[s], excl_move_s[s], excl_lead_s[s])
                  for s in range(s_n)]
         placements = [seed] * s_n
@@ -651,23 +736,36 @@ class GoalOptimizer:
             # every lane has a solved placement to return.
             if budget is not None and priors and budget.should_stop():
                 break
-            use_relax = self._use_relax(goal, budget)
-            if use_relax:
+            prior_keys = tuple(g.name for g in priors)
+            if self._use_relax(goal, budget):
+                # Each lane's placement becomes its rounded relaxation; the
+                # greedy solve below is the lane's repair pass.
                 k = relax.relax_width(self.relaxation, r_pad, num_candidates)
+                key = ("relax", "frac-batch", goal.name, prior_keys, k, self.relaxation.waves)
+                with self.solver.dispatch(
+                        f"R{r_pad}-C{k}-X", [key],
+                        (gctx, alive_s, excl_move_s, excl_lead_s, placements), dev,
+                        label=f"R{r_pad}-C{k}-X-L{s_n}") as d:
+                    placements = [
+                        relax.relax_round(goal, priors, lctx, pl, compute_aggregates(lctx, pl),
+                                          k, self.relaxation.waves,
+                                          self.relaxation.iterations)[0]
+                        for lctx, pl in zip(lanes, placements)]
+                    d.outputs = placements
             column = []
-            for s, lctx in enumerate(lanes):
-                pl = placements[s]
-                if use_relax:
-                    # Each lane's placement becomes its rounded relaxation;
-                    # the greedy solve below is the lane's repair pass.
-                    pl = relax.relax_round(goal, priors, lctx, pl, compute_aggregates(lctx, pl),
-                                           k, self.relaxation.waves,
-                                           self.relaxation.iterations)[0]
-                pl, _, info = self.solver.optimize_goal(
-                    goal, priors, lctx, pl, compute_aggregates(lctx, pl), width=c)
-                placements[s] = pl
-                column.append((info.rounds, info.moves_applied, info.violated_brokers_after))
-                stranded[s] = info.stranded_after
+            with self.solver.dispatch(
+                    f"R{r_pad}-C{c}", [("batch", goal.name, prior_keys, c)],
+                    (gctx, alive_s, excl_move_s, excl_lead_s, placements), dev,
+                    label=f"R{r_pad}-C{c}-L{s_n}") as d:
+                for s, lctx in enumerate(lanes):
+                    pl, _, info = self.solver.optimize_goal(
+                        goal, priors, lctx, placements[s],
+                        compute_aggregates(lctx, placements[s]), width=c)
+                    placements[s] = pl
+                    column.append((info.rounds, info.moves_applied,
+                                   info.violated_brokers_after))
+                    stranded[s] = info.stranded_after
+                d.outputs = placements
             stats.append(column)
             priors.append(goal)
         table = np.asarray(stats, dtype=np.int32).reshape(len(stats), s_n, 3)

@@ -214,6 +214,23 @@ def relax_width(config: RelaxationConfig, num_replicas_padded: int,
     return k if num_candidates is None else min(k, num_candidates)
 
 
+def relax_dispatch(solver: GoalSolver, goal: Goal, priors: Sequence[Goal],
+                   gctx: GoalContext, placement: Placement, agg: Aggregates,
+                   config: RelaxationConfig):
+    """:func:`relax_round` at the sequential path's width, as one solver
+    dispatch through the JAX package's ``("relax", "frac", …)`` family (its
+    ``-X`` buckets, apart from every greedy family)."""
+    r_pad = gctx.state.num_replicas_padded
+    k = relax_width(config, r_pad)
+    key = ("relax", "frac", goal.name, tuple(g.name for g in priors), k, config.waves)
+    with solver.dispatch(f"R{r_pad}-C{k}-X", [key], (gctx, placement, agg),
+                         gctx.state.device) as d:
+        out = relax_round(goal, priors, gctx, placement, agg, k, config.waves,
+                          config.iterations)
+        d.outputs = out[:2]
+    return out
+
+
 def optimize_goal_relaxed(solver: GoalSolver, goal: Goal, priors: Sequence[Goal],
                           gctx: GoalContext, placement: Placement,
                           agg: Optional[Aggregates], config: RelaxationConfig,
@@ -229,10 +246,9 @@ def optimize_goal_relaxed(solver: GoalSolver, goal: Goal, priors: Sequence[Goal]
     original placement: the path may only ever win."""
     if agg is None:
         agg = solver.aggregates(gctx, placement)
-    k = relax_width(config, gctx.state.num_replicas_padded)
     t0 = time.monotonic()
-    rounded_pl, _, frac_moves, violated0, metric0 = relax_round(
-        goal, priors, gctx, placement, agg, k, config.waves, config.iterations)
+    rounded_pl, _, frac_moves, violated0, metric0 = relax_dispatch(
+        solver, goal, priors, gctx, placement, agg, config)
     # Fresh aggregates clear the waves' incremental scatter drift before the
     # repair reads its "before" residuals from them.
     rounded_agg = compute_aggregates(gctx, rounded_pl)

@@ -35,12 +35,20 @@ copied to the host with the goal's final numbers.  A phase with no candidate
 runs its tile anyway, fully masked (nothing is kept), instead of syncing to
 skip it.  Top-k is exact and
 breaks ties by index, as ``lax.top_k`` does.
+
+Every goal solve goes through :meth:`GoalSolver.dispatch`, the compile
+service's seam: its executable families are keyed as the JAX solver keys its
+``_round_cache``, and it feeds compile telemetry and the cost ledger.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import threading
+import time
+from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,8 +70,10 @@ from cruise_control_tpu_torch.analyzer.context import (
 from cruise_control_tpu_torch.analyzer.goals.base import Goal
 from cruise_control_tpu_torch.common.exceptions import OptimizationFailureError
 from cruise_control_tpu_torch.common.resources import Resource
+from cruise_control_tpu_torch.compilesvc.telemetry import telemetry as _compile_telemetry
 from cruise_control_tpu_torch.model.state import Placement
 from cruise_control_tpu_torch.obsvc.convergence import ROUND_STATS_COLS
+from cruise_control_tpu_torch.obsvc.memory import memory_ledger as _memory_ledger
 
 _SCORE_FLOOR = -1e29  # candidate scores below this are "not a candidate"
 _INF_COST = 3.4e38
@@ -81,6 +91,37 @@ def set_round_recording(enabled: bool) -> None:
 
 def round_recording_enabled() -> bool:
     return _RECORD_ROUNDS
+
+
+def shape_signature(tree) -> tuple:
+    """The input shapes a dispatch runs at: each tensor's shape and dtype and
+    each int field (static in the JAX package's pytrees), in walk order over
+    dataclasses, tuples and lists.  A new signature in a family is where
+    the JAX package's jit retraces and compiles."""
+    sig = []
+    stack = [tree]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            sig.append((tuple(x.shape), x.dtype))
+        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+            stack.extend(getattr(x, f.name) for f in dataclasses.fields(x))
+        elif isinstance(x, (tuple, list)):
+            stack.extend(x)
+        elif isinstance(x, int):
+            sig.append(x)
+    return tuple(sig)
+
+
+class Dispatch:
+    """What the body of :meth:`GoalSolver.dispatch` reports back: its
+    outputs (for the cost ledger) and the families it did not run."""
+
+    __slots__ = ("outputs", "skipped")
+
+    def __init__(self):
+        self.outputs = None
+        self.skipped: set = set()
 
 
 def _top_candidates(score: torch.Tensor, k: int):
@@ -791,6 +832,63 @@ class GoalSolver:
         # Destination-jitter span as a fraction of each candidate's feasible
         # cost range.  1.0 maximizes batch width; 0.0 is greedy argmin.
         self.dst_jitter_frac = dst_jitter_frac
+        # Executable families (the JAX package's ``_round_cache`` keys) ->
+        # the input shape signatures each has run at.
+        self._families: Dict[tuple, set] = {}
+        self._families_lock = threading.Lock()
+
+    @contextmanager
+    def dispatch(self, bucket: str, keys: Sequence[tuple], args, device,
+                 label: Optional[str] = None):
+        """Account one goal dispatch through the executable families
+        ``keys`` (the JAX package's ``_cached_executable`` and
+        ``_CompileTracked``).
+
+        Each family is looked up now: a *hit* when it ran before, else a
+        *miss* (``CompileService.<bucket>.cache-{hit,miss}-count``).  A family
+        the body runs at an input shape (:func:`shape_signature` of ``args``)
+        new to it is a *compile*, recorded under ``label`` (default
+        ``bucket``) after the body with the body's wall, and its first run
+        gives the cost ledger a row from ``args`` and the outputs the body
+        puts on the yielded :class:`Dispatch` (with the card's peak over the
+        run in ``full`` mode).  The body names the families it did not run in
+        ``Dispatch.skipped``.  Nothing is recorded when the body raises."""
+        shape = shape_signature(args)
+        tel = _compile_telemetry()
+        fresh = []
+        with self._families_lock:
+            for key in keys:
+                seen = self._families.get(key)
+                if seen is None:
+                    seen = self._families[key] = set()
+                    tel.record_miss(bucket)
+                else:
+                    tel.record_hit(bucket)
+                if shape not in seen:
+                    fresh.append(key)
+        ledger = _memory_ledger()
+        peak_base = None
+        if fresh and ledger.wants_run_peak(device):
+            torch.cuda.synchronize(device)
+            peak_base = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        d = Dispatch()
+        t0 = time.monotonic()
+        yield d
+        fresh = [k for k in fresh if k not in d.skipped]
+        if not fresh:
+            return
+        elapsed = time.monotonic() - t0
+        run_peak = None
+        if peak_base is not None:
+            torch.cuda.synchronize(device)
+            run_peak = torch.cuda.max_memory_allocated(device) - peak_base
+        with self._families_lock:
+            for key in fresh:
+                self._families[key].add(shape)
+        for _ in fresh:
+            tel.record_compile(label or bucket, elapsed / len(fresh))
+            ledger.observe_compile(label or bucket, args, d.outputs, run_peak)
 
     def _width(self, goal: Goal, num_replicas_padded: int) -> int:
         # Narrowing hints always win.  WIDENING hints (rack) are honored
@@ -890,11 +988,46 @@ class GoalSolver:
         on; when it stops the solve, the placement so far is returned with
         ``preempted`` set.  The rounds are the same either way, so a
         segmented solve run to convergence equals an unbudgeted one.
-        ``width`` replaces the goal's candidate width (what-if lanes run
-        every goal at one width)."""
+        ``width`` replaces the goal's candidate width: what-if lanes run
+        every goal at one width, and their lane block's dispatch accounts
+        for them (``GoalOptimizer._run_lanes``).
+
+        The solve is one :meth:`dispatch` through the JAX package's family:
+        ``("solve", goal, priors, C)`` at bucket ``R<R>-C<C>``, or the three
+        ``("segment", …)`` families (init, step, finalize) at ``R<R>-C<C>-S``
+        under a segmented budget (step unrun when the budget stops the
+        solve before its first round); round recording adds ``rounds`` to
+        the key and ``-T`` to the bucket."""
         if agg is None:
             agg = self.aggregates(gctx, placement)
-        c = self._width(goal, gctx.state.num_replicas_padded) if width is None else width
+        segmented = budget is not None and budget.segmented
+        # The JAX package checks a segmented budget once before the first
+        # segment, then after each segment that left the loop unfinished.
+        stop = budget.stop_reason() if segmented else None
+        if width is not None:
+            return self._converge(goal, priors, gctx, placement, agg, budget, width, stop)
+        c = self._width(goal, gctx.state.num_replicas_padded)
+        prior_keys = tuple(g.name for g in priors)
+        bucket = f"R{gctx.state.num_replicas_padded}-C{c}"
+        if segmented:
+            base, bucket = ("segment", goal.name, prior_keys, c), bucket + "-S"
+        else:
+            base = ("solve", goal.name, prior_keys, c)
+        if _RECORD_ROUNDS:
+            base, bucket = base + ("rounds",), bucket + "-T"
+        keys = [base + (part,) for part in ("init", "step", "fin")] if segmented else [base]
+        with self.dispatch(bucket, keys, (gctx, placement, agg), gctx.state.device) as d:
+            if stop is not None:
+                d.skipped.add(keys[1])
+            out = self._converge(goal, priors, gctx, placement, agg, budget, c, stop)
+            d.outputs = out[:2]
+        return out
+
+    def _converge(self, goal: Goal, priors: Sequence[Goal], gctx: GoalContext,
+                  placement: Placement, agg: Aggregates, budget, c: int,
+                  stop: Optional[str]) -> Tuple[Placement, Aggregates, GoalOptimizationInfo]:
+        """:meth:`optimize_goal`'s loop at candidate width ``c``; ``stop`` is
+        the segmented budget's verdict before the first round."""
         runner = self._phases_runner(goal, tuple(priors), c)
         dev = gctx.state.device
         violated0 = goal.violated_brokers(gctx, placement, agg).sum()
@@ -915,9 +1048,6 @@ class GoalSolver:
         # in the ROUND_COL_* order; no sync of its own.
         curve_buf = (torch.zeros((self.max_rounds, ROUND_STATS_COLS), dtype=torch.float32,
                                  device=dev) if _RECORD_ROUNDS else None)
-        # The JAX package checks a segmented budget once before the first
-        # segment, then after each segment that left the loop unfinished.
-        stop = budget.stop_reason() if segmented else None
         while stop is None and rounds < self.max_rounds:
             # The loop condition: the one host sync of each round.
             v, s, a, st = torch.stack([violated, stranded, applied_last, stall]).tolist()

@@ -5,7 +5,9 @@ The JAX package pads to these buckets so that clusters of nearby sizes share
 one compiled executable.  Torch compiles nothing per shape, but the port
 keeps the same buckets: they decide when the resident model must fully
 re-freeze (a cluster that crosses a bucket boundary changes its padded
-shape), and they keep the port's padded arrays equal to the JAX package's.
+shape), they key the compile telemetry's bucket labels and the cost
+ledger's rows, and they keep the port's padded arrays equal to the JAX
+package's.
 The policy maps replicas R, brokers B, candidate width C and what-if lanes
 L onto a geometric ladder.
 
@@ -20,7 +22,7 @@ from dataclasses import dataclass
 from typing import Sequence, Tuple
 
 #: Default lane ladder for what-if batches; anything above
-#: ``max_lane_bucket`` is chunked by the JAX package's lane planner.
+#: ``max_lane_bucket`` is chunked by the lane planner (``chunking.py``).
 DEFAULT_LANE_LADDER: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64)
 
 

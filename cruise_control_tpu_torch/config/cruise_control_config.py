@@ -235,24 +235,24 @@ def _anomaly_def() -> ConfigDef:
 
 
 def _compile_def() -> ConfigDef:
-    """compilesvc keys (no reference analog — the reference JVM has no XLA
-    executables to manage)."""
+    """compilesvc keys (no reference analog — the reference JVM has no device
+    code to manage)."""
     d = ConfigDef()
     d.define("compile.warmup.enabled", ConfigType.BOOLEAN, True,
              doc="start the background warmup daemon on facade start_up; it "
                  "runs real dryrun solves at the canonical shape buckets so "
-                 "the first operator request never pays cold-compile latency")
+                 "the first operator request starts warm")
     d.define("compile.warmup.lanes", ConfigType.LIST, "4",
-             doc="what-if lane-width LADDER the warmup daemon pre-compiles "
-                 "(comma list, e.g. \"4,16\"); every width gets its own warm "
-                 "task so chunked wide batches find each block width hot")
+             doc="what-if lane-width LADDER the warmup daemon runs (comma "
+                 "list, e.g. \"4,16\"); every width gets its own warm task so "
+                 "chunked wide batches find each block width warm")
     d.define("compile.lane.chunking.enabled", ConfigType.BOOLEAN, True,
-             doc="route wide what-if batches through already-compiled lane "
-                 "executables (e.g. 64 lanes as 4x16) instead of compiling "
-                 "a fresh full-width program")
+             doc="route wide what-if batches through lane widths already "
+                 "run (e.g. 64 lanes as 4x16 blocks) instead of one "
+                 "full-width block")
     d.define("compile.max.lane.bucket", ConfigType.INT, 16, range_validator(1),
-             doc="largest lane executable compiled fresh; wider batches are "
-                 "chunked through this width (must be on the lane ladder)")
+             doc="widest fresh lane block; wider batches are chunked "
+                 "through this width (must be on the lane ladder)")
     d.define("compile.replica.pad.floor", ConfigType.INT, 64,
              range_validator(1),
              doc="smallest replica-axis shape bucket (geometric growth above)")
@@ -262,23 +262,22 @@ def _compile_def() -> ConfigDef:
              range_validator(1.001),
              doc="geometric growth factor between consecutive shape buckets")
     d.define("compile.persistent.cache.enabled", ConfigType.BOOLEAN, False,
-             doc="persist XLA executables across restarts under versioned "
-                 "keys (jaxlib version, machine fingerprint, goal stack, "
-                 "bucket).  Default off: XLA:CPU executables from a machine-"
-                 "feature-skewed producer can SIGILL the consumer, so CPU "
-                 "deployments must opt in knowingly")
+             doc="build and load the aggregate kernel's library under "
+                 "versioned keys (torch and CUDA versions, machine "
+                 "fingerprint, goal stack, bucket) so restarts skip nvcc.  "
+                 "Default off (the library is then built in ops/_build/); "
+                 "nothing is compiled for the CPU, where it stays off")
     d.define("compile.persistent.cache.path", ConfigType.STRING, "",
-             doc="cache root; empty = ~/.cache/cruise_control_tpu/"
+             doc="cache root; empty = ~/.cache/cruise_control_tpu_torch/"
                  "compile_cache")
     d.define("compile.persistent.cache.max.bytes", ConfigType.LONG,
              4 * 1024 * 1024 * 1024, range_validator(1),
-             doc="per-entry-directory size cap; oldest executables evicted "
+             doc="per-entry-directory size cap; oldest libraries evicted "
                  "first")
     d.define("compile.persistent.cache.cpu.probe", ConfigType.BOOLEAN, True,
-             doc="gate CPU cache activation on a two-subprocess write-then-"
-                 "load probe of the XLA:CPU loader (memoized per jaxlib + "
-                 "machine fingerprint); false restores blind-trust "
-                 "activation for hosts validated out of band")
+             doc="the JAX package's XLA:CPU loader probe; the port compiles "
+                 "nothing for the CPU, so it reads no probe and a CPU "
+                 "activation stays off either way")
     return d
 
 
@@ -432,9 +431,8 @@ def _memory_def() -> ConfigDef:
     d.define("memory.enabled", ConfigType.BOOLEAN, True,
              doc="run the device-buffer ledger (per-subsystem live-bytes "
                  "accounting, GET /memory, Memory.* sensors) and the "
-                 "per-executable compile-cost ledger.  Host-side only: no "
-                 "traced code changes, every jit cache key and executable "
-                 "is byte-identical with the ledger off")
+                 "per-family cost ledger.  Host-side only: the same device "
+                 "work runs with the ledger on or off")
     d.define("memory.headroom.fraction", ConfigType.DOUBLE, 0.9,
              range_validator(0.0001, 1.0),
              doc="lane-dispatch guard ceiling: a what-if batch whose "
@@ -444,17 +442,16 @@ def _memory_def() -> ConfigDef:
     d.define("memory.device.budget.bytes", ConfigType.LONG, 0,
              range_validator(0),
              doc="device memory budget the headroom guard divides by; "
-                 "0 = take the backend-reported bytes_limit from "
-                 "device.memory_stats() (XLA:CPU reports none, leaving the "
-                 "guard inert unless this override is set)")
+                 "0 = the card's total memory (torch.cuda.mem_get_info); the "
+                 "CPU reports none, leaving the guard inert unless this "
+                 "override is set")
     d.define("memory.analysis.mode", ConfigType.STRING, "lowered",
              in_validator("off", "lowered", "full"),
-             doc="per-executable cost analysis depth on each fresh XLA "
-                 "compile: 'off' disables rows; 'lowered' (default) re-lowers "
-                 "on abstract avals for flops/bytes-accessed plus arg/out "
-                 "sizes (~ms, once per bucket label); 'full' additionally "
-                 "AOT-compiles for temp/generated-code bytes and true peak "
-                 "(a second XLA compile per family — bench/profile opt-in)")
+             doc="cost-row depth on each family's first run at a bucket: "
+                 "'off' disables rows; 'lowered' (default) records argument "
+                 "and output bytes; 'full' also brackets that run on the card "
+                 "with torch.cuda's peak-memory counters for temporary bytes "
+                 "and the peak")
     return d
 
 
@@ -644,7 +641,6 @@ def _webserver_def() -> ConfigDef:
 # keys, and the relaxation tolerance its invariants read), 5 = the compile
 # service and device-memory ledger.  The port's service reads every other key.
 INERT_UNTIL: Dict[str, int] = {
-    "compile.": 5, "memory.": 5,
     "fuzz.": 3, "solver.relaxation.tolerance": 3,
 }
 

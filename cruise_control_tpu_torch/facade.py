@@ -11,15 +11,16 @@ sanity checks → reserve execution → compute on a fresh snapshot → optional
 execute.
 
 The JAX package's ``facade.py``, with every solve on the facade's ``device``
-(the card unless the caller asks for the CPU).  Parts that wait for other
-ROADMAP Queue 1 items: the compile service's warmup daemon (item 5; shape
-buckets come from ``compilesvc/buckets.ShapeBucketPolicy``), the device-memory
-ledger's ``memoryState`` (item 5) and the solver's device failover (item 5: a
-CUDA error in a solve raises, and nothing reruns it on the CPU).
+(the card unless the caller asks for the CPU).  Snapshots pad to the compile
+service's shape buckets; ``start_up`` starts its warmup daemon when
+``compile_service().warmup_enabled``.  The one solve that may leave the card
+is the counted device failover (:meth:`CruiseControl._solve_with_failover`):
+on a device-loss error it reruns on the CPU, tagged ``degraded``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import threading
 import time
@@ -36,7 +37,8 @@ from cruise_control_tpu_torch.analyzer.goals.registry import DEFAULT_GOALS
 from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer, OptimizerResult
 from cruise_control_tpu_torch.analyzer.options import OptimizationOptions
 from cruise_control_tpu_torch.common.exceptions import OngoingExecutionError, UserRequestError
-from cruise_control_tpu_torch.compilesvc.buckets import ShapeBucketPolicy
+from cruise_control_tpu_torch.common.metrics import registry as _metric_registry
+from cruise_control_tpu_torch.compilesvc.service import compile_service
 from cruise_control_tpu_torch.detector.anomalies import (
     Anomaly,
     AnomalyType,
@@ -78,6 +80,16 @@ from cruise_control_tpu_torch.obsvc.tracer import tracer as _obsvc_tracer
 LOG = logging.getLogger(__name__)
 
 
+def _on_device(x, device):
+    """A copy of a tensor dataclass (``ClusterState``, ``Placement``) with
+    every tensor field on ``device``; None stays None."""
+    if x is None:
+        return None
+    return dataclasses.replace(x, **{
+        f.name: getattr(x, f.name).to(device) for f in dataclasses.fields(x)
+        if isinstance(getattr(x, f.name), torch.Tensor)})
+
+
 class _SloPreemptDetector:
     """Wraps the SLO burn-rate detector when ``slo.preempt.enabled`` is on:
     solve-time violations come out *fixable* so the notifier routes them to
@@ -106,8 +118,8 @@ class OperationResult:
     dryrun: bool
     executed: bool
     info: str = ""
-    # The JAX package's device-failover flag.  The port never reruns a solve
-    # elsewhere (a CUDA error raises), so it stays False.
+    # True when the solve reran on the CPU after the card was lost — the
+    # answer is correct but slower-path; operators alert on it.
     degraded: bool = False
     # True when the solve was preempted (deadline / cancel / shutdown / SLO)
     # and returned the best placement found so far instead of converging.
@@ -118,6 +130,8 @@ class OperationResult:
 
     def to_dict(self, explain: bool = False) -> Dict:
         d = {"dryrun": self.dryrun, "executed": self.executed, "info": self.info}
+        if self.degraded:
+            d["degraded"] = True
         if self.partial:
             d["partial"] = True
         if self.model_stale:
@@ -161,9 +175,6 @@ class CruiseControl:
         if self.resident.device != self.device:
             raise ValueError(f"resident service on {self.resident.device}, "
                              f"facade on {self.device}")
-        # Shape buckets every freeze pads to (the JAX package asks its
-        # compile service for the same policy).
-        self._buckets = ShapeBucketPolicy()
         # Offline-logdir key of the last resident build: a flip means disk
         # deaths changed, which the delta journal does not express — rebuild.
         self._offline_key: Optional[tuple] = None
@@ -212,6 +223,14 @@ class CruiseControl:
         # lifecycle rides start_up/shutdown like the reference's reader rides
         # the AnomalyDetectorManager's.
         self.maintenance_reader = None
+        # Background warmup (compilesvc): runs the configured goal stack's
+        # bucket set right after start_up so the first operator request
+        # starts warm.  Built in start_up only when the compile service has
+        # warmup enabled.
+        self.warmup_daemon = None
+        # Wall-clock of the last solve that needed the CPU failover; cleared
+        # by the next clean solve.  Feeds the /health device probe.
+        self._solver_degraded_at: Optional[float] = None
         self._journal_recovery_thread: Optional[threading.Thread] = None
 
     # ------------------------------------------------------------ lifecycle
@@ -236,6 +255,9 @@ class CruiseControl:
                 target=self._precompute_loop, name="proposal-precompute",
                 daemon=False)
             self._precompute_thread.start()
+        if compile_service().warmup_enabled:
+            self.warmup_daemon = self._build_warmup_daemon()
+            self.warmup_daemon.start()
         if getattr(self.executor, "journal", None) is not None:
             # Reconcile the crash journal off the startup path: the admin
             # peer may itself be down, and /health reports the in-progress
@@ -258,6 +280,8 @@ class CruiseControl:
         # grace window to unwind through its next segment boundary, so the
         # teardown below never yanks components out from under a dispatch.
         self._drain_solves(self.shutdown_grace_ms)
+        if self.warmup_daemon is not None:
+            self.warmup_daemon.stop()
         if self.maintenance_reader is not None:
             self.maintenance_reader.stop()
         self._precompute_stop.set()
@@ -350,13 +374,13 @@ class CruiseControl:
 
     # ------------------------------------------------------- snapshots
 
-    def _freeze_bucketed(self, builder):
-        """Freeze a model builder onto the facade's device at the canonical
-        shape buckets, so every snapshot of a similar-sized cluster lands on
-        the same padded shape."""
-        pad_r, pad_b = self._buckets.pad_targets(*builder.counts())
+    def _freeze_bucketed(self, builder, device=None):
+        """Freeze a model builder onto ``device`` (default the facade's) at
+        the compile service's canonical shape buckets, so every snapshot of
+        a similar-sized cluster lands on the same padded shape."""
+        pad_r, pad_b = compile_service().pad_targets(*builder.counts())
         return builder.freeze(pad_replicas_to=pad_r, pad_brokers_to=pad_b,
-                              device=self.device)
+                              device=self.device if device is None else device)
 
     def _resident_snapshot(self, requirements=None):
         """Device tensors for the monitor's current model via the resident
@@ -394,7 +418,123 @@ class CruiseControl:
                             pass
             return builder
 
-        return self.resident.snapshot(build, self._buckets.pad_targets, pin=True)
+        return self.resident.snapshot(build, compile_service().pad_targets, pin=True)
+
+    def _build_warmup_daemon(self):
+        """Warm tasks run REAL solves at the bucket shapes: the proposals,
+        a remove-broker what-if per ladder width, the resident model's delta
+        applies, and the relaxation's round per eligible goal (a no-op while
+        relaxation is off).  Task keys make re-warming idempotent; failures
+        (e.g. load monitor not yet complete) are logged by the daemon and
+        never fatal."""
+        from cruise_control_tpu_torch.analyzer import relax
+        from cruise_control_tpu_torch.analyzer.context import build_context
+        from cruise_control_tpu_torch.analyzer.goals.registry import get_goals_by_priority
+        from cruise_control_tpu_torch.compilesvc import WarmupDaemon
+
+        svc = compile_service()
+        daemon = WarmupDaemon()
+
+        def wait_model_ready(timeout_s: float = 600.0) -> None:
+            # start_up launches the warmer before the monitor has completed
+            # its first aggregation window; a warm task solving immediately
+            # would fail on "0 completed windows".  Poll completeness (and
+            # the daemon's abort probe, so shutdown is never blocked) until
+            # a model can actually be built.
+            req = (self.default_completeness
+                   or ModelCompletenessRequirements())
+            deadline = time.monotonic() + timeout_s
+            while time.monotonic() < deadline:
+                if daemon.should_abort():
+                    raise RuntimeError("warmup aborted before model ready")
+                try:
+                    if self.load_monitor.meet_completeness_requirements(req):
+                        return
+                except Exception:   # noqa: BLE001 — monitor still booting
+                    pass
+                time.sleep(0.25)
+            raise TimeoutError(
+                f"load monitor produced no complete window in {timeout_s:.0f}s")
+
+        def _warm_snapshot():
+            """Bucketed tensors for warm tasks — through the resident service
+            when enabled, so the warmup ALSO seeds the resident entry and the
+            first operator request starts on the delta path."""
+            if self.resident.enabled:
+                return self._resident_snapshot(), True
+            builder = self.load_monitor.cluster_model_builder()
+            return self._freeze_bucketed(builder), False
+
+        def warm_proposals():
+            wait_model_ready()
+            self.proposals()
+
+        def _warm_whatif(width: int):
+            wait_model_ready()
+            (state, placement, meta), pinned = _warm_snapshot()
+            try:
+                first = [int(meta.broker_ids[0])]
+                self.optimizer.batch_remove_scenarios(
+                    state, placement, meta,
+                    [list(first) for _ in range(width)])
+            finally:
+                if pinned:
+                    self.resident.release()
+
+        def warm_delta():
+            # Run the delta applies' index kernels at the model's bucket so
+            # the first steady-state delta does not pay their first launch.
+            wait_model_ready()
+            if not self.resident.enabled:
+                return
+            (state, placement, meta), pinned = _warm_snapshot()
+            try:
+                self.resident.warm_scatter(
+                    int(state.leader_load.shape[0]),
+                    int(state.capacity.shape[0]),
+                    int(state.disk_capacity.shape[1]))
+            finally:
+                if pinned:
+                    self.resident.release()
+
+        def warm_relax():
+            # The relaxation path: one relax round per eligible goal at the
+            # bucket shape, with the same priority-ordered priors chain the
+            # optimizer will use.  No-op (and no relax family) when the path
+            # is off.
+            config = self.optimizer.relaxation
+            if config is None:
+                return
+            wait_model_ready()
+            (state, placement, meta), pinned = _warm_snapshot()
+            try:
+                solver = self.optimizer.solver
+                gctx = build_context(state, placement, meta, self.optimizer.constraint,
+                                     OptimizationOptions())
+                agg = solver.aggregates(gctx, placement)
+                priors = []
+                for goal in get_goals_by_priority(self.default_goals):
+                    if daemon.should_abort():
+                        return
+                    if goal.relax_eligible:
+                        relax.relax_dispatch(solver, goal, priors, gctx, placement, agg,
+                                             config)
+                    priors.append(goal)
+            finally:
+                if pinned:
+                    self.resident.release()
+
+        daemon.add_task(("proposals", tuple(self.default_goals)),
+                        warm_proposals)
+        # The lane ladder is a LIST: each width warms its own lane family,
+        # so chunked wide batches find every block width warm.
+        for width in svc.warmup_lane_ladder:
+            w = max(1, int(width))
+            daemon.add_task(("whatif", tuple(self.default_goals), w),
+                            lambda w=w: _warm_whatif(w))
+        daemon.add_task(("warm_delta", tuple(self.default_goals)), warm_delta)
+        daemon.add_task(("relax", tuple(self.default_goals)), warm_relax)
+        return daemon
 
     def _offline_logdirs(self):
         """Disk-failure source: the executor's cluster backend answers the
@@ -441,7 +581,7 @@ class CruiseControl:
     def cluster_model_snapshot(self, allow_capacity_estimation: bool = True):
         return self.load_monitor.cluster_model(
             allow_capacity_estimation=allow_capacity_estimation,
-            pad_fn=self._buckets.pad_targets, device=self.device)
+            pad_fn=compile_service().pad_targets, device=self.device)
 
     def broker_stats(self) -> Dict:
         """GET /load (KafkaCruiseControl.clusterModel + brokerStats)."""
@@ -589,6 +729,15 @@ class CruiseControl:
                 state, placement, meta = self._freeze_bucketed(
                     self._build_enriched(requirements, model_mutator))
 
+            def refreeze(device):
+                # The tensors (and the resident entry's) may live on the lost
+                # card: drop the entry and rebuild from the monitor onto the
+                # failover's device.
+                self.resident.invalidate("device-failover")
+                self.load_monitor.reset_resident_builder()
+                return self._freeze_bucketed(
+                    self._build_enriched(requirements, model_mutator), device)
+
             # A request's own goal list gets its own optimizer on the shared
             # solver and relaxation settings (the JAX package's process-wide
             # default solver and relaxation switch).
@@ -599,10 +748,10 @@ class CruiseControl:
                                             relaxation=self.optimizer.relaxation))
             generation = (self.load_monitor.model_generation
                           if use_cached and model_mutator is None else None)
-            result = optimizer.optimizations(
-                state, placement, meta, options=options,
-                model_generation=generation, budget=budget)
-            if (model_mutator is None and not result.partial
+            result, degraded = self._solve_with_failover(
+                optimizer, state, placement, meta, options, generation,
+                refreeze=refreeze, budget=budget)
+            if (model_mutator is None and not degraded and not result.partial
                     and goals == self.default_goals
                     and result.final_placement is not None):
                 # Remember the balanced answer: what-if lanes warm-start
@@ -628,6 +777,7 @@ class CruiseControl:
             # caller knows the data quality behind the answer.
             stale = _fidelity().staleness_reason() is not None
             return OperationResult(result, dryrun=dryrun, executed=executed,
+                                   degraded=degraded,
                                    partial=bool(result.partial),
                                    model_stale=stale)
         except Exception:
@@ -674,6 +824,53 @@ class CruiseControl:
         if model_mutator is not None:
             model_mutator(builder)
         return builder
+
+    def _solve_with_failover(self, optimizer, state, placement, meta,
+                             options, generation, *, refreeze=None,
+                             budget=None):
+        """Dispatch the solve; on device loss, fail over to the CPU.
+
+        The card can be lost mid-flight.  A rebalance answer computed on the
+        CPU is the same solve, just slower, so device-loss-shaped errors
+        (:func:`~cruise_control_tpu_torch.resilience.is_device_failure`) are
+        caught at this one seam: ``Resilience.solver-cpu-failovers`` counts
+        them, the solve reruns on the CPU, and the response and trace span
+        are tagged ``degraded`` (the ``/health`` device probe too, until the
+        next clean solve).  A fault of the port's own code raises.  The
+        cache generation is dropped for the retry: the cached entry may
+        itself be poisoned.
+
+        ``refreeze(device)`` (when given) rebuilds (state, placement, meta)
+        on the CPU: the originals, and the resident entry they may have come
+        from, live on the lost card, so the retry must not read them.  The
+        callable invalidates the resident entry so later requests
+        full-freeze on a live card.  Without it the given tensors are copied
+        to the CPU."""
+        try:
+            result = optimizer.optimizations(
+                state, placement, meta, options=options,
+                model_generation=generation, budget=budget)
+            self._solver_degraded_at = None
+            return result, False
+        except Exception as exc:  # noqa: BLE001 — classified below
+            if not _resilience.is_device_failure(exc):
+                raise
+            _metric_registry().counter(_resilience.SOLVER_FAILOVER_SENSOR).inc()
+            LOG.error("device failure during solve (%s: %s); retrying on the CPU",
+                      type(exc).__name__, exc)
+        span = _obsvc_tracer().current()
+        if span is not None:
+            span.set("degraded", True)
+        with _resilience.cpu_fallback() as cpu:
+            if refreeze is not None:
+                state, placement, meta = refreeze(cpu)
+            else:
+                state, placement = _on_device(state, cpu), _on_device(placement, cpu)
+            result = optimizer.optimizations(
+                state, placement, meta, options=options,
+                model_generation=None, budget=budget)
+        self._solver_degraded_at = time.time()
+        return result, True
 
     def proposals(self, goals: Optional[Sequence[str]] = None,
                   options: Optional[OptimizationOptions] = None,
@@ -962,6 +1159,7 @@ class CruiseControl:
         """GET /state aggregation (CruiseControlState.java)."""
         runner_state = (self.task_runner.state.value
                         if self.task_runner is not None else "NOT_STARTED")
+        from cruise_control_tpu_torch.obsvc.memory import memory_ledger
         return {
             "MonitorState": {
                 **self.load_monitor.state(runner_state).to_dict(),
@@ -979,6 +1177,7 @@ class CruiseControl:
                 "residentModel": self.resident.stats(),
                 "convergence": _convergence().state_summary(),
                 "activeSolves": self.active_solves(),
+                "memoryState": memory_ledger().state_summary(),
             },
         }
 
@@ -992,8 +1191,7 @@ class CruiseControl:
             (goal operations would be rejected, reads still serve).
           * ``backend``   — admin circuit CLOSED → ready, HALF_OPEN →
             degraded, OPEN or executor in PAUSED_BACKEND_DOWN → unhealthy.
-          * ``device``    — always ready: the port never moves a solve off
-            its device (a CUDA error raises from the solve itself).
+          * ``device``    — last solve needed the CPU failover → degraded.
           * ``journal``   — startup reconciliation running or un-reconciled
             orphans on disk → degraded.
         """
@@ -1027,10 +1225,15 @@ class CruiseControl:
             detail["reason"] = "executor paused: backend down"
         probes["backend"] = {"status": backend_status, **detail}
 
-        # -- accelerator liveness (the JAX package's CPU-fallback flag; the
-        # port has none, and poking the device from the health path could
-        # itself wedge on a dead card)
-        probes["device"] = {"status": "ready"}
+        # -- accelerator liveness (observed, not probed: poking the device
+        # from the health path could itself wedge on a dead card)
+        if self._solver_degraded_at is not None:
+            probes["device"] = {
+                "status": "degraded",
+                "reason": "solver on CPU fallback",
+                "sinceMs": int(self._solver_degraded_at * 1000)}
+        else:
+            probes["device"] = {"status": "ready"}
 
         # -- crash journal
         journal_status, detail = "ready", {}

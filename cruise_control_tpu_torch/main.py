@@ -15,9 +15,11 @@ publishing over the metrics bus to the consuming sampler; with
 ``sample.store.dir`` the bus and the sample store are segment-file logs that
 a restart replays) or ``prometheus``.  ``metrics.transport.listen.port``
 serves the bus over TCP, and ``maintenance.event.transport.*`` feeds
-maintenance plans to the detector.  The JAX package's compile-service
-configuration and fuzz sensors are not called (ROADMAP Queue 1 items 5 and
-3); their keys stay accepted and inert (``INERT_UNTIL``).
+maintenance plans to the detector.  ``compile.*`` installs the process-wide
+compile service (warmup daemon, lane chunking, the persistent kernel-build
+cache) and ``memory.*`` the memory ledger, before anything solves.  The JAX
+package's fuzz sensors are not called (ROADMAP Queue 1 item 3); the
+``fuzz.`` keys stay accepted and inert (``INERT_UNTIL``).
 
     python -m cruise_control_tpu_torch.main --demo [--device cpu] [--port N]
         [--config cruisecontrol.properties]
@@ -32,6 +34,8 @@ import signal
 import sys
 import time
 from typing import Optional, Tuple
+
+import torch
 
 from cruise_control_tpu_torch.common.exceptions import ConfigError
 from cruise_control_tpu_torch.config.cruise_control_config import CruiseControlConfig
@@ -86,10 +90,20 @@ def build_app(config: CruiseControlConfig, port: Optional[int] = None,
     sample store and metrics bus the config would build; every other part is
     wired from ``config`` as without them."""
     from cruise_control_tpu_torch import resilience
+    from cruise_control_tpu_torch.compilesvc import configure as configure_compile
+    from cruise_control_tpu_torch.compilesvc.service import goal_stack_hash
     from cruise_control_tpu_torch.config.config_def import get_configured_instance
     from cruise_control_tpu_torch.obsvc import configure as configure_obsvc
 
-    # Observability first: trace.* keys gate the span tracer, audit-log
+    # Install the process-wide compile service from compile.* keys before
+    # anything can solve, and point the kernel's build at the persistent
+    # cache's versioned entry for this goal stack (no-op unless
+    # compile.persistent.cache.enabled, and off on the CPU).
+    compile_svc = configure_compile(config)
+    compile_svc.cache.activate(
+        platform_name=torch.device(device).type,
+        goal_stack_hash=goal_stack_hash(config.goal_names("default.goals")))
+    # Observability next: trace.* keys gate the span tracer, audit-log
     # bounds and profile dir before any request or daemon can create spans.
     configure_obsvc(config)
     res = resilience.configure(config)

@@ -32,12 +32,18 @@ Sensors: ``Model.full-freezes``, ``Model.delta-applies``,
 ``Model.resident-invalidations``.  Spans: ``model.freeze`` (host pack),
 ``model.transfer`` (host→device), ``model.delta_apply``; the last two
 synchronise the device before they close, so they time the work, not its
-enqueue.  The JAX package's memory-ledger posts wait for the port's
-``obsvc/memory.py``.
+enqueue.
+
+Memory ledger (``resident-model`` subsystem): a full freeze posts the new
+tensors' alloc (and the replaced entry's free), an invalidation the entry's
+free, a pin and a release their events.  Where the JAX package posts a
+donation (its apply writes into the old buffers), the port's apply made
+copies, so it posts the copy's alloc and the old tensors' free.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import threading
 import time
@@ -61,6 +67,7 @@ from cruise_control_tpu_torch.model.state import (
     empty_delta,
     state_from_packed,
 )
+from cruise_control_tpu_torch.obsvc.memory import SUBSYS_RESIDENT, measure_bytes, memory_ledger
 from cruise_control_tpu_torch.obsvc.tracer import tracer as _tracer
 
 LOG = logging.getLogger(__name__)
@@ -75,6 +82,16 @@ INVALIDATION_SENSOR = "Model.resident-invalidations"
 # the two packages line up.
 DELTA_SLOT_FLOOR = 64
 DELTA_SLOT_GROWTH = 2.0
+
+
+def _tensors(state: ClusterState, placement: Placement) -> list:
+    return [getattr(x, f.name) for x in (state, placement) for f in dataclasses.fields(x)]
+
+
+def _missing_from(tensors: list, others: list) -> list:
+    """The tensors of ``tensors`` that are not (as objects) in ``others``."""
+    ids = {id(t) for t in others}
+    return [t for t in tensors if id(t) not in ids]
 
 
 def _synchronize(t: torch.Tensor) -> None:
@@ -130,6 +147,7 @@ class ResidentModelService:
         with self.lock:
             if self._entry is None:
                 return
+            memory_ledger().post(SUBSYS_RESIDENT, self._entry.get("nbytes", 0), kind="free")
             self._entry = None
             self._invalidations.inc()
             self._invalidation_reasons[reason] = (
@@ -180,11 +198,14 @@ class ResidentModelService:
                 out = self._full_freeze(builder, bucket)
             if pin:
                 self._pins += 1
+                memory_ledger().post(SUBSYS_RESIDENT, 0, kind="pin")
             return out
 
     def release(self) -> None:
         """Drop a ``pin=True`` snapshot's pin; lets pending deltas apply."""
         with self._cond:
+            if self._pins > 0:
+                memory_ledger().post(SUBSYS_RESIDENT, 0, kind="release")
             self._pins = max(0, self._pins - 1)
             self._cond.notify_all()
 
@@ -266,9 +287,19 @@ class ResidentModelService:
             state, placement = apply_deltas(entry["state"], entry["placement"], delta)
             _synchronize(state.valid)
         meta = delta.meta if delta.meta is not None else entry["meta"]
+        old = _tensors(entry["state"], entry["placement"])
+        new = _tensors(state, placement)
         entry.update(state=state, placement=placement, meta=meta,
-                     version=builder.version, chain=entry["chain"] + 1)
+                     version=builder.version, chain=entry["chain"] + 1,
+                     nbytes=measure_bytes(new))
         self._delta_applies.inc()
+        # The apply wrote into copies of the fields it changed: those copies
+        # are allocated and the tensors they replace freed (the JAX package
+        # posts one net-zero donation here).
+        memory_ledger().post(SUBSYS_RESIDENT, measure_bytes(_missing_from(new, old)),
+                             kind="alloc")
+        memory_ledger().post(SUBSYS_RESIDENT, measure_bytes(_missing_from(old, new)),
+                             kind="free")
         return state, placement, meta
 
     def _full_freeze(self, builder: ClusterModel, bucket: Tuple[int, int],
@@ -284,7 +315,14 @@ class ResidentModelService:
             _synchronize(state.valid)
         self._full_freezes.inc()
         if self.enabled:
+            nbytes = measure_bytes((state, placement))
+            if self._entry is not None:
+                # Replacing the entry: the old tensors are unreferenced once
+                # in-flight pinned solves drain.
+                memory_ledger().post(SUBSYS_RESIDENT, self._entry.get("nbytes", 0),
+                                     kind="free")
+            memory_ledger().post(SUBSYS_RESIDENT, nbytes, kind="alloc")
             self._entry = dict(builder=builder, bucket=bucket, state=state,
                                placement=placement, meta=meta,
-                               version=builder.version, chain=0)
+                               version=builder.version, chain=0, nbytes=nbytes)
         return state, placement, meta

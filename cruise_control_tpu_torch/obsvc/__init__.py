@@ -14,15 +14,15 @@ Public surface (the JAX package's ``obsvc``, for the parts the port has):
   (``execution.observatory.enabled``).
 * :func:`fidelity` — the model-fidelity recorder (``monitor.fidelity.enabled``).
 * :func:`history` — the sensor history sampler (``obs.history.enabled``).
+* :func:`memory_ledger` — the device-buffer & executable-cost ledgers
+  (``memory.enabled``; GET /memory, ``Memory.*`` sensors, the lane-dispatch
+  headroom guard).
 * :mod:`~cruise_control_tpu_torch.obsvc.slo` — burn-rate SLO evaluation over
   the history rings (``slo.*``, read by ``main.build_app``).
 * :mod:`~cruise_control_tpu_torch.obsvc.profiler` — ``POST /profile``
   captures on ``torch.profiler``.
 * :func:`configure` — apply ``trace.*`` / ``obs.*`` / ``execution.*`` /
-  ``monitor.fidelity.*`` config keys at service build time.
-
-The JAX package's device-memory ledger waits for the port's platform layers
-(ROADMAP Queue 1 item 5).
+  ``monitor.fidelity.*`` / ``memory.*`` config keys at service build time.
 """
 
 from __future__ import annotations
@@ -32,12 +32,15 @@ from cruise_control_tpu_torch.obsvc.convergence import ConvergenceRecorder, conv
 from cruise_control_tpu_torch.obsvc.execution import ExecutionFlightRecorder, execution
 from cruise_control_tpu_torch.obsvc.fidelity import ModelFidelityRecorder, fidelity
 from cruise_control_tpu_torch.obsvc.history import HistoryRecorder, history
+from cruise_control_tpu_torch.obsvc.memory import (DeviceMemoryLedger, ExecutableCostLedger,
+                                                   cost_ledger, memory_ledger)
 from cruise_control_tpu_torch.obsvc.tracer import Span, Tracer, tracer
 
-__all__ = ["AuditLog", "ConvergenceRecorder", "ExecutionFlightRecorder",
+__all__ = ["AuditLog", "ConvergenceRecorder", "DeviceMemoryLedger",
+           "ExecutableCostLedger", "ExecutionFlightRecorder",
            "HistoryRecorder", "ModelFidelityRecorder", "Span", "Tracer",
-           "audit_log", "configure", "convergence", "execution", "fidelity",
-           "history", "tracer"]
+           "audit_log", "configure", "convergence", "cost_ledger",
+           "execution", "fidelity", "history", "memory_ledger", "tracer"]
 
 
 def configure(config) -> Tracer:
@@ -47,6 +50,7 @@ def configure(config) -> Tracer:
     # Lazy: the solver imports obsvc.convergence, so obsvc cannot import the
     # solver at module level without closing the cycle.
     from cruise_control_tpu_torch.analyzer import solver as _solver
+    from cruise_control_tpu_torch.obsvc import memory as _memory
     from cruise_control_tpu_torch.obsvc import profiler
 
     tr = tracer()
@@ -71,6 +75,8 @@ def configure(config) -> Tracer:
         min_valid_partition_ratio=float(
             config.get("anomaly.model.min.valid.partition.ratio")),
         max_age_ms=int(config.get("anomaly.model.max.age.ms")))
+
+    _memory.configure(config)
 
     hist = history()
     hist.configure(

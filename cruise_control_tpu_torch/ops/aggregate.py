@@ -13,8 +13,9 @@ On a CUDA tensor it launches the hand-written kernel in
 ``cruise_control_tpu/ops/pallas_aggregate.py`` ``_pallas_sums``) or raises;
 on a CPU tensor it takes :func:`broker_channel_sums_plain`.  The kernel is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface at first use, under ``ops/_build/``, and bound with ``ctypes``.
-The source note in ``aggregate.cu`` gives the design and its memory bound.
+interface at first use, under ``ops/_build/`` (or where
+:func:`set_build_dir` points, which the persistent compile cache does), and
+bound with ``ctypes``.  The source note in ``aggregate.cu`` gives the design and its memory bound.
 """
 
 from __future__ import annotations
@@ -190,6 +191,19 @@ def _load():
             _resident = res
             _fn = fn
     return _fn
+
+
+def set_build_dir(path) -> bool:
+    """Build and load the library under ``path`` from now on (the one way to
+    move it; ``compilesvc.cache.PersistentCompileCache.activate`` calls it).
+    Returns False, and moves nothing, once this process has loaded the
+    library: the new place then serves later processes only."""
+    global _BUILD_DIR
+    with _lib_lock:
+        if _fn is not None:
+            return False
+        _BUILD_DIR = Path(path)
+        return True
 
 
 def load_seconds() -> float:

@@ -1,14 +1,10 @@
 """resilience: retry budgets, circuit breaking, the reconnecting admin
-backend, and the /health probe plumbing.
+backend, solver device failover, and the /health probe plumbing.
 
 ``configure(config)`` is called once at service build time (mirroring
 obsvc): it snapshots the ``resilience.*`` config keys into a process-wide
 :class:`ResilienceSettings` and materializes every ``Resilience.*`` sensor
 so a scrape sees them from boot.
-
-The JAX package's ``failover.py`` (solver device failover onto the CPU) is
-not ported: device loss on CUDA is designed in ROADMAP Queue 1 item 5, and
-until then a CUDA error in a solve raises.
 """
 
 from __future__ import annotations
@@ -20,6 +16,9 @@ from typing import Optional
 from cruise_control_tpu_torch.common.metrics import registry
 from cruise_control_tpu_torch.resilience.circuit import (STATE_VALUE, CircuitBreaker,
                                                    CircuitState)
+from cruise_control_tpu_torch.resilience.failover import (SOLVER_FAILOVER_SENSOR,
+                                                        cpu_fallback,
+                                                        is_device_failure)
 from cruise_control_tpu_torch.resilience.reconnect import (RECONNECTS_SENSOR,
                                                      TRANSPORT_ERRORS_SENSOR,
                                                      BackendCircuitOpenError,
@@ -92,6 +91,7 @@ def register_sensors() -> None:
     reg.counter(RECONNECTS_SENSOR)
     reg.counter(TRANSPORT_ERRORS_SENSOR)
     reg.counter(ADMISSION_REJECTIONS_SENSOR)
+    reg.counter(SOLVER_FAILOVER_SENSOR)
     reg.gauge(CIRCUIT_STATE_SENSOR, _circuit_state_value)
 
 
@@ -124,6 +124,6 @@ __all__ = [
     "BackendCircuitOpenError", "CircuitBreaker", "CircuitState",
     "ReconnectingBackend", "ResilienceSettings", "RetryBudgetExhausted",
     "RetryPolicy", "STATE_VALUE", "backend_circuit", "call_with_retry",
-    "configure", "register_sensors",
+    "configure", "cpu_fallback", "is_device_failure", "register_sensors",
     "set_backend_circuit", "settings",
 ]

@@ -17,10 +17,8 @@ signals it would act on are exported as the AnomalyDetector
 under/over/right-sized gauges.
 
 The JAX package's server over the port's facade: every solving endpoint
-solves on the facade's device.  ``GET /memory`` and ``GET /compile_cache``
-wait for the port's memory ledger and compile service (ROADMAP Queue 1
-item 5); until then they answer 501 through the dispatcher's "not
-implemented" branch, and the endpoint tables stay the JAX package's.
+solves on the facade's device, and the endpoint tables are the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -387,6 +385,16 @@ class CruiseControlApp:
                      "truncated": truncated,
                      "series": series}, {}
 
+    def _ep_compile_cache(self, params, task_id):
+        """Compile-service admin view: bucket policy, lane widths already
+        run, persistent-cache state, warmup progress, per-bucket
+        hit/miss/compile counters (the raw sensors also ride /metrics)."""
+        from cruise_control_tpu_torch.compilesvc import compile_service
+        body = compile_service().snapshot()
+        daemon = getattr(self.cc, "warmup_daemon", None)
+        body["warmup"] = daemon.snapshot() if daemon is not None else None
+        return 200, body, {}
+
     def _ep_partition_load(self, params, task_id):
         n = int(params.get("entries", "100"))
         return 200, {"records": self.cc.partition_load(max_entries=n)}, {}
@@ -473,6 +481,17 @@ class CruiseControlApp:
         trace_dir once the last async capture landed."""
         from cruise_control_tpu_torch.obsvc import profiler
         return 200, profiler.status(), {}
+
+    def _ep_memory(self, params, task_id):
+        """Device-memory observatory: per-subsystem live-bytes ledger,
+        reconciliation against the card's allocator, headroom-guard counters,
+        and the per-family cost rows (404 while memory.enabled=false)."""
+        from cruise_control_tpu_torch.obsvc.memory import memory_ledger
+        ledger = memory_ledger()
+        if not ledger.enabled:
+            return 404, {"error": "memory ledger disabled "
+                                  "(memory.enabled=false)"}, {}
+        return 200, ledger.snapshot(), {}
 
     def _ep_model_quality(self, params, task_id):
         """Fidelity observatory: the current model fingerprint with its

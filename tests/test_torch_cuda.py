@@ -432,3 +432,54 @@ def test_reporter_mode_service_to_a_model_on_the_card(cuda, tmp_path):
             app.server.server_close()
             app.cc.shutdown()
     assert states[0][0] >= 2 and states[1] == states[0]
+
+
+@pytest.mark.cuda
+def test_memory_ledger_reconciles_with_the_card(cuda, monkeypatch):
+    """The resident model's posts on the card: the tracked bytes lie within
+    what ``torch.cuda.memory_stats`` says is allocated (``verify_balanced``),
+    the drift is that difference, and the budget is the card's memory."""
+    from cruise_control_tpu_torch.model.resident import ResidentModelService
+    from cruise_control_tpu_torch.obsvc import memory
+    from cruise_control_tpu_torch.testing import deterministic as det
+
+    ledger = memory.DeviceMemoryLedger()
+    ledger.configure(enabled=True)
+    monkeypatch.setattr(memory, "_LEDGER", ledger)
+    svc = ResidentModelService(device=cuda)
+    cm = det.small_cluster_model()
+    svc.snapshot(cm, lambda r, b: (16, 4))
+    cm.set_replica_load("T1", 0, 0, det.load(9.0, 9.0, 9.0, 9.0))
+    state, placement, _ = svc.snapshot(cm, lambda r, b: (16, 4), pin=True)
+    svc.release()
+    tracked = ledger.live_bytes(memory.SUBSYS_RESIDENT)
+    assert tracked == memory.measure_bytes((state, placement)) > 0
+    rec = ledger.reconcile()
+    assert rec["backend"]["bytes_in_use"] >= tracked
+    assert rec["driftBytes"] == rec["backend"]["bytes_in_use"] - tracked >= 0
+    assert ledger.verify_balanced() == []
+    assert ledger.device_budget_bytes() == torch.cuda.mem_get_info()[1]
+
+
+@pytest.mark.cuda
+def test_full_mode_cost_row_on_the_card(cuda, monkeypatch):
+    """``memory.analysis.mode=full``: each family's first run at a bucket on
+    the card records its temporaries from the peak-memory counters, and the
+    peak is arguments + outputs + temporaries."""
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.obsvc import memory
+    from cruise_control_tpu_torch.testing import random_cluster as rc
+
+    ledger = memory.DeviceMemoryLedger()
+    ledger.configure(enabled=True, analysis_mode="full")
+    monkeypatch.setattr(memory, "_LEDGER", ledger)
+    state, placement, meta = rc.generate(rc.ClusterProperties(**SMALL), device=cuda)
+    GoalOptimizer(goal_names=["RackAwareGoal", "ReplicaDistributionGoal"]).optimizations(
+        state, placement, meta)
+    rows = ledger.costs.rows()
+    assert sum(row["count"] for row in rows.values()) == 2
+    for row in rows.values():
+        assert row["mode"] == "full" and row["temp_bytes"] is not None
+        assert row["temp_bytes"] >= 0 and row["arg_bytes"] > 0
+        assert row["peak_bytes"] == row["arg_bytes"] + row["out_bytes"] + row["temp_bytes"]
+    assert any(row["temp_bytes"] > 0 for row in rows.values())

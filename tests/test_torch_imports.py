@@ -43,7 +43,9 @@ def test_scan_covers_every_module_of_the_port():
     host-side support included, and the REST server, the bootstrap, the CLI,
     the SLO evaluator, the profiler and the SPNEGO test validator, and the
     ingestion edge: the reporter's serde, transports and agent, the
-    consuming and Prometheus samplers."""
+    consuming and Prometheus samplers, and the platform layers: the compile
+    service's chunking, telemetry, cache, warmup and service, the memory
+    ledger, the solver's device failover and the hermetic guards."""
     names = {".".join(p.relative_to(PORT).with_suffix("").parts) for p in _port_modules()}
     assert {"model.builder", "model.snapshot", "model.state", "model.cpu_model",
             "testing.deterministic", "analyzer.budget", "analyzer.relax",
@@ -69,9 +71,10 @@ def test_scan_covers_every_module_of_the_port():
             "servlet.openapi", "main", "client.cccli", "obsvc.slo", "obsvc.profiler",
             "testing.fake_gss", "reporter.__init__", "reporter.serde",
             "reporter.transport", "reporter.agent", "monitor.fetcher",
-            "monitor.prometheus"} <= names
-    # The JAX package's failover module imports jax; the port has none yet.
-    assert "resilience.failover" not in names
+            "monitor.prometheus", "compilesvc.__init__", "compilesvc.chunking",
+            "compilesvc.telemetry", "compilesvc.cache", "compilesvc.warmup",
+            "compilesvc.service", "obsvc.memory", "resilience.failover",
+            "utils.hermetic"} <= names
 
 
 def test_broker_simulator_starts_without_torch():

@@ -102,6 +102,7 @@ def test_disk_failure_self_heals_across_all_network_faces(tmp_path):
             "default.goals": GOALS,
             "anomaly.detection.goals": GOALS,
             "obs.history.enabled": "false",
+            "compile.warmup.enabled": "false",
         })
         app = build_app(config, port=0, device="cpu")
         app.cc.start_up()
@@ -184,6 +185,7 @@ def test_maintenance_plans_over_authed_tcp_through_assembled_service(tmp_path):
             "maintenance.event.offsets.path": str(tmp_path / "off.json"),
             "self.healing.enabled": "true",
             "obs.history.enabled": "false",
+            "compile.warmup.enabled": "false",
         })
         app = build_app(config, port=0, device="cpu")
         reader = app.cc.maintenance_reader

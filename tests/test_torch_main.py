@@ -31,9 +31,11 @@ from cruise_control_tpu_torch.obsvc import profiler
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOALS = "RackAwareGoal,ReplicaCapacityGoal,ReplicaDistributionGoal"
 # Small windows (the model is ready in seconds); no sensor-history thread
-# left running in the test process.
+# left running in the test process, and no warmup daemon (these tests are
+# not about warmup, and ran without one while compile.* was inert).
 DEMO = {"partition.metrics.window.ms": "400", "metric.sampling.interval.ms": "150",
-        "default.goals": GOALS, "obs.history.enabled": "false"}
+        "default.goals": GOALS, "obs.history.enabled": "false",
+        "compile.warmup.enabled": "false"}
 
 
 def _build(props, **kwargs):

@@ -319,7 +319,8 @@ def test_prometheus_sampler_with_fake_adapter(both):
 
 
 def _build(m, props):
-    cfg = m.config.CruiseControlConfig(props)
+    # No warmup daemon: these tests are not about warmup.
+    cfg = m.config.CruiseControlConfig(dict(props, **{"compile.warmup.enabled": "false"}))
     if m.root == PKGS["torch"]:
         return m.main.build_app(cfg, port=0, device="cpu")
     return m.main.build_app(cfg, port=0)

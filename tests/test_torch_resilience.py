@@ -2,9 +2,12 @@
 admin backend, settings and sensors) against the JAX package's.
 
 Counterparts of ``tests/test_resilience.py`` without its journal tests (the
-port's are in ``tests/test_torch_executor.py``), its device-failover tests
-(the port has no failover yet) and its HTTP health endpoint (the port's
-``/health`` rollup is held in ``tests/test_torch_facade.py``).  Each
+port's are in ``tests/test_torch_executor.py``) and its HTTP health endpoint
+(the port's ``/health`` rollup is held in ``tests/test_torch_facade.py``).
+The device failover's classifier is held to the JAX package's on its cases,
+plus the CUDA runtime's: device loss fails over, a fault of the port's own
+code (an illegal address, an assert, OOM, a missing kernel image, the
+kernel's build or launch) never does.  Each
 scripted case runs on both packages with an injected clock and a seeded
 jitter source; the retry schedules, circuit transitions and sensor counts
 must be equal.  Sleeps are float arithmetic on the same inputs in the same
@@ -334,10 +337,9 @@ def test_configure_settings_and_sensors_equal_jax():
         resilience.register_sensors()
         names = {n for n in registry().snapshot() if n.startswith("Resilience.")}
         jnames = {n for n in jregistry().snapshot() if n.startswith("Resilience.")}
-        # The JAX package's solver failover sensor waits for the port's failover.
-        assert names == jnames - {"Resilience.solver-cpu-failovers"}
-        assert not {"SOLVER_FAILOVER_SENSOR", "cpu_fallback",
-                    "is_device_failure"} & set(resilience.__all__)
+        assert names == jnames
+        assert {"cpu_fallback", "is_device_failure"} <= set(resilience.__all__)
+        assert set(resilience.__all__) == set(jres.__all__)
         cb = CircuitBreaker("backend", failure_threshold=1)
         cb.record_failure()
         resilience.set_backend_circuit(cb)
@@ -502,3 +504,148 @@ def test_socket_reconnect_after_simulator_kill():
         rb.close()
         proc.kill()
         proc.wait(timeout=5)
+
+
+# ------------------------------------------------------- solver failover
+
+
+class XlaRuntimeError(Exception):
+    pass
+
+
+def _chained(inner):
+    outer = ValueError("wrapper")
+    outer.__cause__ = inner
+    return outer
+
+
+# The JAX package's cases (tests/test_resilience.py), then the CUDA runtime's
+# device-loss messages.
+DEVICE_LOSS = [
+    XlaRuntimeError("anything"), RuntimeError("DEVICE_LOST: tpu gone"), OSError("Socket closed"),
+    _chained(XlaRuntimeError("inner")),
+    RuntimeError("CUDA error: uncorrectable ECC error encountered"),
+    RuntimeError("CUDA error: CUDA-capable device(s) is/are busy or unavailable"),
+    RuntimeError("CUDA error: no CUDA-capable device is detected"),
+    RuntimeError("Unable to determine the device handle for GPU0000:17:00.0: "
+                 "GPU is lost.  Reboot the system to recover this GPU"),
+    RuntimeError("the GPU has fallen off the bus"),
+    _chained(RuntimeError("cudaErrorECCUncorrectable")),
+]
+NOT_DEVICE_LOSS = [
+    ValueError("plain bad input"), RuntimeError("ordinary failure"),
+    RuntimeError("CUDA error: an illegal memory access was encountered"),
+    RuntimeError("CUDA error: misaligned address"),
+    RuntimeError("CUDA error: an illegal instruction was encountered"),
+    RuntimeError("CUDA error: device-side assert triggered"),
+    RuntimeError("CUDA error: invalid argument"),
+    RuntimeError("CUDA out of memory. Tried to allocate 20.00 GiB"),
+    RuntimeError("CUDA error: no kernel image is available for execution on the device"),
+    RuntimeError("nvcc failed (1):\naggregate.cu(12): error"),
+    RuntimeError("nvcc not found (set CUDA_HOME): the aggregate kernel is built from source"),
+    RuntimeError("aggregate kernel launch failed: CUDA error 46"),
+    RuntimeError("aggregate kernel occupancy query failed: -1"),
+    # A kernel fault anywhere in the chain wins over a device-loss marker.
+    _chained(RuntimeError("UNAVAILABLE: CUDA error: an illegal memory access was encountered")),
+]
+
+
+@pytest.mark.parametrize("exc", DEVICE_LOSS + NOT_DEVICE_LOSS, ids=lambda e: str(e)[:40])
+def test_is_device_failure_classification(exc):
+    from cruise_control_tpu.resilience.failover import is_device_failure as jis_device_failure
+    got = resilience.is_device_failure(exc)
+    assert got == any(exc is e for e in DEVICE_LOSS)
+    if any(exc is e for e in DEVICE_LOSS[:4] + NOT_DEVICE_LOSS[:2]):
+        assert got == jis_device_failure(exc)       # the JAX package's own cases
+
+
+def test_torch_oom_error_type_is_not_device_loss():
+    import torch
+    assert not resilience.is_device_failure(torch.cuda.OutOfMemoryError("CUDA out of memory"))
+
+
+def test_cpu_fallback_yields_the_cpu():
+    import torch
+    with resilience.cpu_fallback() as dev:
+        assert dev == torch.device("cpu")
+
+
+def _facade_stack():
+    from tests.test_torch_facade import PKGS as FPKGS
+    from tests.test_torch_facade import _mods as fmods
+    from tests.test_torch_facade import build_stack
+    return build_stack(fmods(FPKGS["torch"]))
+
+
+def test_solver_cpu_failover_tags_degraded():
+    """tests/test_resilience.py's counterpart on the port's facade."""
+    cc, _, _ = _facade_stack()
+
+    class _FlakyOptimizer:
+        def __init__(self):
+            self.calls = []
+
+        def optimizations(self, state, placement, meta, options=None,
+                          model_generation=None, budget=None):
+            self.calls.append(model_generation)
+            if len(self.calls) == 1:
+                raise RuntimeError("CUDA error: uncorrectable ECC error encountered")
+            return "solved"
+
+    opt = _FlakyOptimizer()
+    before = registry().counter("Resilience.solver-cpu-failovers").count
+    result, degraded = cc._solve_with_failover(opt, None, None, None, None,
+                                               generation=(1, 1))
+    assert result == "solved" and degraded
+    # The CPU retry must not trust the (possibly poisoned) cache entry.
+    assert opt.calls == [(1, 1), None]
+    assert cc._solver_degraded_at is not None
+    assert registry().counter("Resilience.solver-cpu-failovers").count == before + 1
+    assert cc.health()["probes"]["device"]["status"] == "degraded"
+    # A clean solve clears the degraded flag.
+    result, degraded = cc._solve_with_failover(opt, None, None, None, None,
+                                               generation=None)
+    assert not degraded and cc._solver_degraded_at is None
+    assert cc.health()["probes"]["device"]["status"] == "ready"
+
+    def kernel_fault(*a, **k):
+        raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+    opt.optimizations = kernel_fault
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        cc._solve_with_failover(opt, None, None, None, None, None)
+    assert registry().counter("Resilience.solver-cpu-failovers").count == before + 1
+
+
+def test_solver_failover_invalidates_resident_model():
+    """A device failure mid-solve drops the resident tensors: the retry
+    rebuilds its model on the CPU (the facade's device here is the CPU too),
+    and the next request full-freezes instead of applying a delta into
+    them; the response and its dict carry ``degraded``."""
+    cc, _, _ = _facade_stack()
+    cc.proposals()
+    s0 = cc.resident.stats()
+    assert s0["resident"] and s0["fullFreezes"] >= 1
+    real = cc.optimizer.optimizations
+    calls = {"n": 0, "devices": []}
+
+    def flaky(state, placement, meta, options=None, model_generation=None, budget=None):
+        calls["n"] += 1
+        calls["devices"].append(state.leader_load.device.type)
+        if calls["n"] == 1:
+            raise RuntimeError("CUDA error: GPU is lost")
+        return real(state, placement, meta, options=options,
+                    model_generation=model_generation, budget=budget)
+
+    cc.optimizer.optimizations = flaky
+    r = cc.rebalance(dryrun=True)
+    assert r.degraded and r.optimizer_result is not None and r.to_dict()["degraded"] is True
+    assert calls["devices"] == ["cpu", "cpu"]
+    s1 = cc.resident.stats()
+    assert s1["invalidationReasons"].get("device-failover") == 1
+    assert not s1["resident"] and s1["deltaApplies"] == s0["deltaApplies"]
+    cc.optimizer.optimizations = real
+    r = cc.proposals()
+    assert not r.degraded and "degraded" not in r.to_dict()
+    s2 = cc.resident.stats()
+    assert s2["resident"] and s2["fullFreezes"] == s0["fullFreezes"] + 1

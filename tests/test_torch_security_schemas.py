@@ -192,7 +192,7 @@ def secured_app():
     cfg = CruiseControlConfig({
         "metric.sampling.interval.ms": 300, "partition.metrics.window.ms": 600,
         "default.goals": GOALS, "obs.history.enabled": False, "webserver.security.enable": True,
-        "webserver.auth.credentials.file": path})
+        "webserver.auth.credentials.file": path, "compile.warmup.enabled": False})
     app = build_app(cfg, port=0, device="cpu")
     app.cc.start_up()
     app.start()

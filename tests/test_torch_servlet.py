@@ -10,8 +10,11 @@ the JAX package's schema checker as well as its own; the OpenAPI specs and
 endpoint tables are equal; the user-task protocol, two-step review, TLS, the
 static UI and the API prefix behave as in the JAX package.
 
-``GET /memory`` and ``GET /compile_cache`` answer 501 in the port until its
-memory ledger and compile service exist (ROADMAP Queue 1 item 5).
+``GET /memory`` and ``GET /compile_cache`` answer from the port's memory
+ledger and compile service, with bodies valid against its schemas (their
+numbers are the port's own, so the bodies are not compared with the JAX
+package's; ``tests/test_torch_memory.py`` and ``test_torch_compilesvc.py``
+hold those layers against it).
 """
 
 from __future__ import annotations
@@ -192,7 +195,10 @@ def test_same_request_script_same_answers(apps):
             jvalidate(tb, J_SCHEMAS[endpoint])
         tb, jb = _scrub(tb), _scrub(jb)
         if endpoint == "state":
-            # The JAX package's memory ledger waits for ROADMAP Queue 1 item 5.
+            # The memory ledgers count each package's own bytes (held against
+            # each other in tests/test_torch_memory.py).
+            assert "memoryState" in tb["AnalyzerState"]
+            tb["AnalyzerState"].pop("memoryState")
             jb["AnalyzerState"].pop("memoryState", None)
             for body, app in ((tb, apps["torch"]), (jb, apps["jax"])):
                 resident = body["AnalyzerState"]["residentModel"]
@@ -239,9 +245,26 @@ def test_rebalance_disk_uses_intra_broker_goals(apps):
 
 
 def test_memory_and_compile_cache_are_not_implemented_yet(apps):
-    for endpoint in ("memory", "compile_cache"):
-        status, body, _ = _request(apps["torch"], "GET", endpoint)
-        assert status == 501 and body["error"] == f"{endpoint} not implemented"
+    """Both endpoints answer now (no 501): ``/compile_cache`` always, and
+    ``/memory`` 200 with the ledger on, 404 with it off."""
+    from cruise_control_tpu_torch.obsvc import memory
+
+    status, body, _ = _request(apps["torch"], "GET", "compile_cache")
+    assert status == 200 and body["warmup"] is None
+    validate(body, ENDPOINT_SCHEMAS["compile_cache"])
+    jvalidate(body, J_SCHEMAS["compile_cache"])
+    saved = memory._LEDGER
+    try:
+        memory.set_memory_ledger(memory.DeviceMemoryLedger())
+        status, body, _ = _request(apps["torch"], "GET", "memory")
+        assert status == 404 and "memory.enabled=false" in body["error"]
+        memory.memory_ledger().configure(enabled=True)
+        status, body, _ = _request(apps["torch"], "GET", "memory")
+        assert status == 200 and body["enabled"] is True
+        validate(body, ENDPOINT_SCHEMAS["memory"])
+        jvalidate(body, J_SCHEMAS["memory"])
+    finally:
+        memory.set_memory_ledger(saved)
 
 
 def test_metrics_json_and_text(apps):
@@ -510,6 +533,7 @@ def test_plugin_class_overrides_via_config():
         "sample.store.class": "cruise_control_tpu_torch.monitor.sample_store.NoopSampleStore",
         "anomaly.notifier.class": "cruise_control_tpu_torch.detector.notifier.SelfHealingNotifier",
         "min.valid.partition.ratio": 0.25, "obs.history.enabled": False,
+        "compile.warmup.enabled": False,
     })
     app = build_app(cfg, port=0, device="cpu")
     try:
