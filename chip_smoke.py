@@ -244,14 +244,16 @@ bus.close()
 # The platform phase: the servlet phase's service (no precompute daemon, no
 # anomaly round inside the phase) with the warmup daemon on, warming the
 # 4-lane width; the remove batch's lanes (a broker each); how long the warmup
-# may take; the injected device-loss and kernel-fault messages (as the CUDA
-# runtime words them) and the goal of the solves they hit.
+# may take; the injected device-loss and kernel-fault errors (the CUDA
+# runtime's error string and enum name, worded as torch words a real error)
+# and the goal of the solves they hit.
 PLATFORM_CONFIG = dict(SERVLET_CONFIG, **{"compile.warmup.enabled": "true",
                                           "compile.warmup.lanes": "4"})
 PLATFORM_LANES = 16
+PLATFORM_PADDED_LANES = 6       # on 4-lane blocks: 4 + (2 real, 2 padding)
 PLATFORM_WARMUP_S = 600
-PLATFORM_DEVICE_LOSS = "CUDA error: uncorrectable ECC error encountered"
-PLATFORM_KERNEL_FAULT = "CUDA error: an illegal memory access was encountered"
+PLATFORM_DEVICE_LOSS = ("uncorrectable ECC error encountered", "cudaErrorECCUncorrectable")
+PLATFORM_KERNEL_FAULT = ("an illegal memory access was encountered", "cudaErrorIllegalAddress")
 PLATFORM_FAILOVER_GOAL = "RackAwareGoal"
 RESIDENT = dict(HEALTHY, seed=3143)
 RESIDENT_MUTATIONS = 64
@@ -2634,6 +2636,32 @@ def ingest_phase(aggregate, props, device="cuda"):
     return out
 
 
+def real_cuda_error():
+    """A CUDA error that torch raises on the card and that leaves its context
+    usable: a device ordinal past the last card.  None when torch does not
+    word it as the CUDA runtime's error."""
+    import torch
+    try:
+        torch.empty(1, device=f"cuda:{torch.cuda.device_count()}")
+    except RuntimeError as e:
+        if str(e).startswith("CUDA error: "):
+            return e
+    return None
+
+
+def like_real(real, error):
+    """An error of ``real``'s type and wording with the CUDA runtime's
+    ``error`` (error string, enum name) in place of its own: torch's hint and
+    device-side-assertion lines stay as the card's torch wrote them."""
+    text, name = error
+    lines = str(real).split("\n")
+    lines[0] = "CUDA error: " + text
+    if len(lines) > 1 and lines[1].startswith(("Search for `", "GPU device may be out of range")):
+        lines[1] = (f"Search for `{name}' in https://docs.nvidia.com/cuda/cuda-runtime-api/"
+                    "group__CUDART__TYPES.html for more information.")
+    return type(real)("\n".join(lines))
+
+
 def platform_phase(aggregate, props, device="cuda"):
     """The platform layers at BASELINE #3, through ``main.build_app`` on a
     fresh monitored cluster (sampling paused after ``start_up``, so the model
@@ -2653,11 +2681,16 @@ def platform_phase(aggregate, props, device="cuda"):
         headroom fraction is set from the 4-lane cost row so that the guard
         shrinks the batch onto 2-lane blocks (judged again), then so that it
         refuses it (``memory_refused``, ``Memory.headroom-refusals`` + 1);
+        between them, PLATFORM_PADDED_LANES lanes go as two 4-lane blocks, the
+        second padded; each batch solves its real lanes only;
     (f) one injected device-loss error: the response is ``degraded``,
         ``Resilience.solver-cpu-failovers`` + 1 and ``/health``'s device probe
         degraded; the next solve on the card clears it and launches the
-        kernel; one injected illegal-address error raises."""
+        kernel; one injected illegal-address error raises.  Both are worded
+        as a real CUDA error that torch raised on the card, which is itself
+        not device loss."""
     import dataclasses
+    import threading
     import torch
     from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
     from cruise_control_tpu_torch.client import cccli
@@ -2667,7 +2700,7 @@ def platform_phase(aggregate, props, device="cuda"):
     from cruise_control_tpu_torch.main import build_app
     from cruise_control_tpu_torch.obsvc import memory
     from cruise_control_tpu_torch.analyzer.options import OptimizationOptions
-    from cruise_control_tpu_torch.resilience import SOLVER_FAILOVER_SENSOR
+    from cruise_control_tpu_torch.resilience import SOLVER_FAILOVER_SENSOR, is_device_failure
     from cruise_control_tpu_torch.servlet.schemas import ENDPOINT_SCHEMAS, validate
 
     cluster = monitored_cluster(props)
@@ -2777,28 +2810,44 @@ def platform_phase(aggregate, props, device="cuda"):
         base = f"R{r_pad}-C{min(512, r_pad)}"
 
         blocks = []
+        lane_solves = []
         run_block = cc.optimizer._run_lane_block
+        solve_goal = cc.optimizer.solver.optimize_goal
 
         def counted_block(gctx, seed, goals, num_candidates, alive_s, *rest):
             blocks.append(int(alive_s.shape[0]))
             return run_block(gctx, seed, goals, num_candidates, alive_s, *rest)
 
-        cc.optimizer._run_lane_block = counted_block
+        def counted_solve(*args, **kwargs):
+            if threading.get_ident() == batch_thread:       # not a detector's solve
+                lane_solves.append(1)
+            return solve_goal(*args, **kwargs)
 
-        def batch(what):
+        batch_thread = threading.get_ident()
+
+        cc.optimizer._run_lane_block = counted_block
+        cc.optimizer.solver.optimize_goal = counted_solve
+
+        def batch(what, lane_sets=sets):
             blocks.clear()
+            lane_solves.clear()
             aggregate.LAUNCHES = 0
             t0 = time.monotonic()
-            res = cc.remove_brokers_batch(sets)
+            res = cc.remove_brokers_batch(lane_sets)
             sync(device)
             summary = dict(wall_s=time.monotonic() - t0, kernel_launches=aggregate.LAUNCHES,
-                           blocks=list(blocks), refused=res.memory_refused,
+                           blocks=list(blocks), lane_goal_solves=len(lane_solves),
+                           refused=res.memory_refused,
                            lane_bytes_after=ledger.live_bytes("lane-batch"))
             launches = summary["kernel_launches"]
             check(summary["lane_bytes_after"] == 0, f"platform: {what}: lane posts unbalanced")
             if res.memory_refused:
                 return res, summary
             check(launches > 0, f"platform: {what}: 0 launches")
+            # Padding lanes are planned, never solved.
+            check(len(lane_solves) == len(lane_sets) * len(res.goal_names),
+                  f"platform: {what}: {len(lane_solves)} lane solves for {len(lane_sets)} "
+                  f"lanes of {len(res.goal_names)} goals")
             check_removal(res, snap_state, snap_meta, hard, f"platform {what}")
             judged = []
             for s, ids in enumerate(res.scenario_sets):
@@ -2820,6 +2869,9 @@ def platform_phase(aggregate, props, device="cuda"):
         _, lanes4 = batch("4-lane blocks")
         check(lanes4["blocks"] == [4] * (PLATFORM_LANES // 4),
               f"platform: blocks {lanes4['blocks']} for {PLATFORM_LANES} lanes on width 4")
+        _, padded = batch("padded 4-lane blocks", sets[:PLATFORM_PADDED_LANES])
+        check(padded["blocks"] == [4, 4],
+              f"platform: blocks {padded['blocks']} for {PLATFORM_PADDED_LANES} lanes on width 4")
         row = ledger.costs.row(f"{base}-L4")
         check(row is not None and row["peak_bytes"] > 0, f"platform: no cost row {base}-L4")
         budget = ledger.device_budget_bytes()
@@ -2841,22 +2893,29 @@ def platform_phase(aggregate, props, device="cuda"):
         ledger.configure(enabled=True, headroom_fraction=cfg["memory.headroom.fraction"],
                          budget_bytes=0, analysis_mode=ledger.analysis_mode)
         cc.optimizer._run_lane_block = run_block
+        cc.optimizer.solver.optimize_goal = solve_goal
         out["lanes"] = dict(lanes=PLATFORM_LANES, cost_row=row, budget_bytes=budget,
-                            four_lane_blocks=lanes4, shrunk=lanes2, refused=lanes0)
+                            four_lane_blocks=lanes4, padded=padded, shrunk=lanes2,
+                            refused=lanes0)
 
         # (f) device failover, and a fault of the port's own.
+        real_error = real_cuda_error()
+        check(real_error is not None and not is_device_failure(real_error),
+              f"platform: torch's own CUDA error on the card: {real_error!r}")
+        device_loss = like_real(real_error, PLATFORM_DEVICE_LOSS)
+        kernel_fault = like_real(real_error, PLATFORM_KERNEL_FAULT)
         real = GoalOptimizer.optimizations
         injected = []
 
-        def inject(message):
+        def inject(error):
             def flaky(self, *args, **kwargs):
                 if not injected:
-                    injected.append(message)
-                    raise RuntimeError(message)
+                    injected.append(error)
+                    raise error
                 return real(self, *args, **kwargs)
             return flaky
 
-        GoalOptimizer.optimizations = inject(PLATFORM_DEVICE_LOSS)
+        GoalOptimizer.optimizations = inject(device_loss)
         try:
             body, failover = request(responder, "rebalance", "POST",
                                      {"dryrun": "true", "goals": PLATFORM_FAILOVER_GOAL})
@@ -2874,7 +2933,7 @@ def platform_phase(aggregate, props, device="cuda"):
               and health["probes"]["device"]["status"] == "ready",
               f"platform: the next card solve: {clean}, health {health['probes']['device']}")
         injected.clear()
-        GoalOptimizer.optimizations = inject(PLATFORM_KERNEL_FAULT)
+        GoalOptimizer.optimizations = inject(kernel_fault)
         try:
             cc.rebalance([PLATFORM_FAILOVER_GOAL], dryrun=True)
             raised = None
@@ -2882,10 +2941,11 @@ def platform_phase(aggregate, props, device="cuda"):
             raised = str(e)
         finally:
             GoalOptimizer.optimizations = real
-        check(raised == PLATFORM_KERNEL_FAULT
+        check(raised == str(kernel_fault)
               and registry().counter(SOLVER_FAILOVER_SENSOR).count == failovers0 + 1,
               f"platform: the illegal-address error did not raise ({raised})")
-        out["failover"] = dict(degraded_wall_s=failover["wall_s"],
+        out["failover"] = dict(torch_cuda_error=str(real_error),
+                               degraded_wall_s=failover["wall_s"],
                                degraded_kernel_launches=failover["kernel_launches"],
                                next_card_solve=clean, kernel_fault_raised=True)
     finally:

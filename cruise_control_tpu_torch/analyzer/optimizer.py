@@ -41,7 +41,6 @@ from cruise_control_tpu_torch.analyzer.solver import (
 from cruise_control_tpu_torch.common.actions import ExecutionProposal, ProposalSummary
 from cruise_control_tpu_torch.common.exceptions import OptimizationFailureError
 from cruise_control_tpu_torch.common.metrics import registry
-from cruise_control_tpu_torch.compilesvc.chunking import plan_is_identity
 from cruise_control_tpu_torch.compilesvc.service import compile_service
 from cruise_control_tpu_torch.model.state import ClusterMeta, ClusterState, Placement
 from cruise_control_tpu_torch.model.stats import ClusterModelStats, compute_stats
@@ -639,34 +638,29 @@ class GoalOptimizer:
                     broker=seed.broker.expand(s_n, -1), disk=seed.disk.expand(s_n, -1),
                     is_leader=seed.is_leader.expand(s_n, -1)),
                 preempted=True, memory_refused=True)
-        if plan_is_identity(plan, s_n):
-            rounds, moves, violated, stranded, placements = self._run_lane_block(
-                gctx, seed, goals, num_candidates, alive_s, excl_move_s, excl_lead_s, budget)
-            svc.note_lanes_compiled(lane_key, s_n)
-        else:
-            blocks = []
-            # Once the budget preempts a block mid-stack, later blocks run
-            # only the same solved-goal prefix so every block's [S, G] stats
-            # stay column-aligned (their lanes still need placements).
-            goal_limit = len(goals)
-            for chunk in plan:
-                # Padding lanes re-run the last real lane.
-                idx = torch.as_tensor(np.minimum(chunk.start + np.arange(chunk.size), s_n - 1),
-                                      device=alive_s.device)
-                out = self._run_lane_block(gctx, seed, goals[:goal_limit], num_candidates,
-                                           alive_s[idx], excl_move_s[idx], excl_lead_s[idx],
-                                           budget)
-                goal_limit = min(goal_limit, out[0].shape[1])
-                svc.note_lanes_compiled(lane_key, chunk.size)
-                n = chunk.n_real
-                pl = out[4]
-                blocks.append(tuple(x[:n] for x in out[:4]) + (Placement(
-                    broker=pl.broker[:n], disk=pl.disk[:n], is_leader=pl.is_leader[:n]),))
-            rounds, moves, violated = (
-                np.concatenate([b[i][:, :goal_limit] for b in blocks], axis=0) for i in range(3))
-            stranded = np.concatenate([b[3] for b in blocks], axis=0)
-            placements = Placement(**{f: torch.cat([getattr(b[4], f) for b in blocks])
-                                      for f in ("broker", "disk", "is_leader")})
+        blocks = []
+        # Once the budget preempts a block mid-stack, later blocks run only
+        # the same solved-goal prefix so every block's [S, G] stats stay
+        # column-aligned (their lanes still need placements).
+        goal_limit = len(goals)
+        for chunk in plan:
+            # The block's lane masks span its planned width (padding rows
+            # repeat the last real lane), which keys its dispatches and cost
+            # rows as the JAX package's vmapped width does; only its real
+            # lanes are solved.
+            idx = torch.as_tensor(np.minimum(chunk.start + np.arange(chunk.size), s_n - 1),
+                                  device=alive_s.device)
+            out = self._run_lane_block(gctx, seed, goals[:goal_limit], num_candidates,
+                                       alive_s[idx], excl_move_s[idx], excl_lead_s[idx],
+                                       budget, chunk.n_real)
+            goal_limit = min(goal_limit, out[0].shape[1])
+            svc.note_lanes_compiled(lane_key, chunk.size)
+            blocks.append(out)
+        rounds, moves, violated = (
+            np.concatenate([b[i][:, :goal_limit] for b in blocks], axis=0) for i in range(3))
+        stranded = np.concatenate([b[3] for b in blocks], axis=0)
+        placements = Placement(**{f: torch.cat([getattr(b[4], f) for b in blocks])
+                                  for f in ("broker", "disk", "is_leader")})
         preempted = rounds.shape[1] < len(goals)
         if preempted:
             registry().counter(PREEMPTIONS_SENSOR).inc()
@@ -689,26 +683,26 @@ class GoalOptimizer:
         )
 
     def _run_lane_block(self, gctx, seed: Placement, goals, num_candidates,
-                        alive_s, excl_move_s, excl_lead_s, budget):
+                        alive_s, excl_move_s, excl_lead_s, budget, n_real):
         """Ledgered wrapper over :meth:`_run_lanes`: the block's lane tensors
-        (per-lane masks and seed placements) are the transient device bill of
-        a what-if batch, posted to the ``lane-batch`` subsystem for the
-        block's lifetime."""
+        (per-lane masks and the real lanes' placements) are the transient
+        device bill of a what-if batch, posted to the ``lane-batch``
+        subsystem for the block's lifetime."""
         ledger = memory_ledger()
         lane_bytes = 0
         if ledger.enabled:
             lane_bytes = (measure_bytes((alive_s, excl_move_s, excl_lead_s))
-                          + alive_s.shape[0] * measure_bytes(seed))
+                          + n_real * measure_bytes(seed))
             ledger.post(SUBSYS_LANES, lane_bytes, kind="alloc")
         try:
             return self._run_lanes(gctx, seed, goals, num_candidates, alive_s, excl_move_s,
-                                   excl_lead_s, budget)
+                                   excl_lead_s, budget, n_real)
         finally:
             if ledger.enabled:
                 ledger.post(SUBSYS_LANES, lane_bytes, kind="free")
 
     def _run_lanes(self, gctx, seed: Placement, goals, num_candidates,
-                   alive_s, excl_move_s, excl_lead_s, budget):
+                   alive_s, excl_move_s, excl_lead_s, budget, n_real):
         """One lane block (the JAX package's ``_run_lane_block_impl``), goal
         by goal: every lane finishes goal g before any lane starts goal g+1,
         so a budget cuts every lane at the same goal prefix, at least one
@@ -717,19 +711,21 @@ class GoalOptimizer:
         width ``min(num_candidates, R_pad)`` from fresh aggregates of its own
         placement, one lane after another.  Each goal is one solver dispatch
         over the block (the JAX package's vmapped ``("batch", goal, priors,
-        C)`` family, labelled ``R<R>-C<C>-L<S>``), preceded on the
-        relaxation path by the ``("relax", "frac-batch", …)`` one.  Returns
-        (rounds, moves, violated after: i32[S, G]; stranded after the last
-        goal: i32[S]; the stacked final placements)."""
+        C)`` family, labelled ``R<R>-C<C>-L<S>`` at the block's width S),
+        preceded on the relaxation path by the ``("relax", "frac-batch", …)``
+        one.  Only the first ``n_real`` lanes are solved: the rest are
+        padding, whose seed placements stand in the dispatch's outputs.
+        Returns (rounds, moves, violated after: i32[n_real, G]; stranded
+        after the last goal: i32[n_real]; the stacked final placements)."""
         s_n = alive_s.shape[0]
         r_pad = gctx.state.num_replicas_padded
         c = min(num_candidates, r_pad)
         dev = gctx.state.device
         lanes = [scenario_context(gctx, alive_s[s], excl_move_s[s], excl_lead_s[s])
-                 for s in range(s_n)]
+                 for s in range(n_real)]
         placements = [seed] * s_n
-        stats = []                       # per goal: [S] rows of (rounds, moves, violated)
-        stranded = np.zeros(s_n, dtype=np.int32)
+        stats = []                       # per goal: [n_real] rows of (rounds, moves, violated)
+        stranded = np.zeros(n_real, dtype=np.int32)
         priors: List[Goal] = []
         for goal in goals:
             # Goal-boundary budget check: at least one goal always runs so
@@ -750,7 +746,7 @@ class GoalOptimizer:
                         relax.relax_round(goal, priors, lctx, pl, compute_aggregates(lctx, pl),
                                           k, self.relaxation.waves,
                                           self.relaxation.iterations)[0]
-                        for lctx, pl in zip(lanes, placements)]
+                        for lctx, pl in zip(lanes, placements)] + placements[n_real:]
                     d.outputs = placements
             column = []
             with self.solver.dispatch(
@@ -768,9 +764,10 @@ class GoalOptimizer:
                 d.outputs = placements
             stats.append(column)
             priors.append(goal)
-        table = np.asarray(stats, dtype=np.int32).reshape(len(stats), s_n, 3)
+        table = np.asarray(stats, dtype=np.int32).reshape(len(stats), n_real, 3)
         rounds, moves, violated = (np.ascontiguousarray(table[:, :, i].T) for i in range(3))
-        stacked = Placement(broker=torch.stack([p.broker for p in placements]),
-                            disk=torch.stack([p.disk for p in placements]),
-                            is_leader=torch.stack([p.is_leader for p in placements]))
+        solved = placements[:n_real]
+        stacked = Placement(broker=torch.stack([p.broker for p in solved]),
+                            disk=torch.stack([p.disk for p in solved]),
+                            is_leader=torch.stack([p.is_leader for p in solved]))
         return rounds, moves, violated, stranded, stacked

@@ -9,10 +9,13 @@ first use.  This manager decides where that library is built and loaded from
 one way to move it), with the JAX module's behaviour:
 
 - **Versioned keys.**  Entries live under
-  ``<root>/v<schema>/<platform>-<machine_fp>/torch-<ver>+cu<ver>/<stack>/<bucket>``:
-  a torch or CUDA upgrade, a host change, a goal-stack change or a
-  shape-bucket change each land in a fresh directory instead of loading a
-  library built for another toolchain.
+  ``<root>/v<schema>/<platform>-<machine_fp>/torch-<ver>+cu<ver>``: a torch
+  or CUDA upgrade or a host change lands in a fresh directory instead of
+  loading a library built for another toolchain.  The JAX package's
+  ``<stack>/<bucket>`` levels key XLA executables, which depend on the goals
+  and shapes; the kernel library depends on neither, so it has no such
+  levels (inside the directory, ``ops/aggregate.py`` names it by the hash of
+  its source).
 - **Eviction.**  Oldest-first by mtime down to ``max_bytes`` per activated
   directory.
 - **Corruption-safe fallback.**  A directory whose manifest is unreadable
@@ -21,11 +24,13 @@ one way to move it), with the JAX module's behaviour:
   raising — a broken cache must never take down a solve.
 
 The default is off: the library is then built in the git-ignored
-``ops/_build/``.  A process loads the library once, so :meth:`activate`
-after that load moves the build only for later processes, and :meth:`stats`
-says so.  Nothing is compiled for the CPU, so a CPU activation stays off
-with that reason in :meth:`stats` (the JAX package's CPU loader probe has no
-counterpart).
+``ops/_build/`` of the checkout, which a fresh checkout (a new release
+directory) starts without.  The cache's root outlives checkouts, so a
+release's first start loads the library instead of running ``nvcc``.  A
+process loads the library once, so :meth:`activate` after that load moves
+the build only for later processes, and :meth:`stats` says so.  Nothing is
+compiled for the CPU, so a CPU activation stays off with that reason in
+:meth:`stats` (the JAX package's CPU loader probe has no counterpart).
 """
 
 from __future__ import annotations
@@ -85,13 +90,11 @@ class PersistentCompileCache:
 
     # ------------------------------------------------------------ keying
 
-    def cache_dir(self, platform_name: str,
-                  goal_stack_hash: str = "anystack",
-                  bucket: str = "anyshape") -> str:
+    def cache_dir(self, platform_name: str) -> str:
         return os.path.join(
             self.root, f"v{SCHEMA_VERSION}",
             f"{platform_name}-{machine_fingerprint()}",
-            f"torch-{toolchain_version()}", goal_stack_hash, bucket)
+            f"torch-{toolchain_version()}")
 
     def _manifest(self) -> Dict:
         return {"schema": SCHEMA_VERSION, "torch": toolchain_version(),
@@ -106,9 +109,7 @@ class PersistentCompileCache:
         self.applies_to = None
         return False
 
-    def activate(self, platform_name: Optional[str] = None,
-                 goal_stack_hash: str = "anystack",
-                 bucket: str = "anyshape") -> bool:
+    def activate(self, platform_name: Optional[str] = None) -> bool:
         """Point the aggregate kernel's build at the versioned entry
         directory.  Returns True when the entry already holds a library
         ("warm").  Never raises: any failure logs and leaves the cache off.
@@ -120,7 +121,7 @@ class PersistentCompileCache:
                 platform_name = _default_platform()
             if platform_name == "cpu":
                 return self._off("nothing is compiled for the CPU")
-            path = self.cache_dir(platform_name, goal_stack_hash, bucket)
+            path = self.cache_dir(platform_name)
             os.makedirs(path, exist_ok=True)
             self._validate_or_quarantine(path)
             os.makedirs(path, exist_ok=True)

@@ -91,18 +91,15 @@ def build_app(config: CruiseControlConfig, port: Optional[int] = None,
     wired from ``config`` as without them."""
     from cruise_control_tpu_torch import resilience
     from cruise_control_tpu_torch.compilesvc import configure as configure_compile
-    from cruise_control_tpu_torch.compilesvc.service import goal_stack_hash
     from cruise_control_tpu_torch.config.config_def import get_configured_instance
     from cruise_control_tpu_torch.obsvc import configure as configure_obsvc
 
     # Install the process-wide compile service from compile.* keys before
     # anything can solve, and point the kernel's build at the persistent
-    # cache's versioned entry for this goal stack (no-op unless
+    # cache's versioned entry for this toolchain (no-op unless
     # compile.persistent.cache.enabled, and off on the CPU).
     compile_svc = configure_compile(config)
-    compile_svc.cache.activate(
-        platform_name=torch.device(device).type,
-        goal_stack_hash=goal_stack_hash(config.goal_names("default.goals")))
+    compile_svc.cache.activate(platform_name=torch.device(device).type)
     # Observability next: trace.* keys gate the span tracer, audit-log
     # bounds and profile dir before any request or daemon can create spans.
     configure_obsvc(config)

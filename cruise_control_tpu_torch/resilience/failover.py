@@ -15,11 +15,17 @@ access, a misaligned address or an illegal instruction, a device-side
 assert, an invalid argument, an out-of-memory error, a missing kernel image,
 an ``nvcc`` failure or anything the aggregate kernel's build or launch
 raises.  Those raise as they would without this module.
+
+A CUDA error as torch raises it is judged on the runtime's own words only:
+torch follows them with lines of its own on every error (a help line, the
+``CUDA_LAUNCH_BLOCKING`` hint, a note on device-side assertions) whose
+wording would otherwise match the markers.
 """
 
 from __future__ import annotations
 
 import logging
+import re
 from contextlib import contextmanager
 
 LOG = logging.getLogger(__name__)
@@ -56,6 +62,23 @@ _OWN_FAULT_MARKERS = (
 )
 
 
+#: torch's CUDA error: ``CUDA error: <the runtime's error string>``, then its
+#: own lines, of which the help line names the ``cudaError`` enum.
+_CUDA_ERROR = re.compile(r"CUDA error: ([^\n]*)")
+_CUDA_ERROR_NAME = re.compile(r"`(cudaError\w+)'")
+
+
+def _runtime_text(msg: str) -> str:
+    """What the device runtime itself said in ``msg``: for a CUDA error as
+    torch formats it, the error string after ``CUDA error: `` and the enum
+    name of torch's help line; any other message whole."""
+    found = _CUDA_ERROR.search(msg)
+    if found is None:
+        return msg
+    name = _CUDA_ERROR_NAME.search(msg, found.end())
+    return found.group(1) if name is None else f"{found.group(1)} {name.group(1)}"
+
+
 def _chain(exc: BaseException):
     seen = set()
     cur: BaseException | None = exc
@@ -69,18 +92,17 @@ def is_device_failure(exc: BaseException) -> bool:
     """True when ``exc`` (or anything in its cause chain) looks like the
     accelerator runtime died, as opposed to an application error or a fault
     of the port's own kernel."""
-    chain = list(_chain(exc))
-    for cur in chain:
+    chain = [(cur, _runtime_text(str(cur))) for cur in _chain(exc)]
+    for cur, text in chain:
         if type(cur).__name__ == "OutOfMemoryError" or any(
-                marker in str(cur) for marker in _OWN_FAULT_MARKERS):
+                marker in text for marker in _OWN_FAULT_MARKERS):
             return False
-    for cur in chain:
+    for cur, text in chain:
         if type(cur).__name__ in _FAILURE_TYPE_NAMES:
             return True
-        if isinstance(cur, (RuntimeError, OSError)):
-            msg = str(cur)
-            if any(marker in msg for marker in _FAILURE_MARKERS):
-                return True
+        if isinstance(cur, (RuntimeError, OSError)) and any(
+                marker in text for marker in _FAILURE_MARKERS):
+            return True
     return False
 
 

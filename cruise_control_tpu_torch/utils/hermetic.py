@@ -5,9 +5,9 @@
   Nothing on the service's path calls it.
 - :func:`probe_cuda` asks a throwaway subprocess whether CUDA initializes, so
   a wedged CUDA stack cannot hang the caller.
-- :func:`enable_persistent_compilation_cache` points the aggregate kernel's
-  build at a per-user cache root, so later processes load the library
-  instead of running ``nvcc``.
+- :func:`enable_persistent_compilation_cache` activates the persistent
+  kernel-build cache at a root of the caller's (default per-user), so later
+  processes load the aggregate kernel's library instead of running ``nvcc``.
 """
 
 from __future__ import annotations
@@ -47,23 +47,14 @@ def probe_cuda(timeout_s: float = 180.0) -> bool:
 
 
 def enable_persistent_compilation_cache(path: Optional[str] = None) -> bool:
-    """Build and load the aggregate kernel's library under ``path`` (default
-    a per-user cache root, not a predictable shared ``/tmp`` name a co-tenant
-    could pre-create), so repeat runs skip ``nvcc``.  Takes effect only
-    before this process loads the library.  Returns True when the directory
-    already holds entries ("warm") so callers can annotate timing
+    """Build and load the aggregate kernel's library under the persistent
+    kernel-build cache rooted at ``path`` (default its per-user root, not a
+    predictable shared ``/tmp`` name a co-tenant could pre-create), so
+    repeat runs skip ``nvcc``.  This is the cache's own activation, with its
+    versioned keys; it takes effect only before this process loads the
+    library, and is off on a process without a card.  Returns True when the
+    entry already holds a library ("warm") so callers can annotate timing
     artifacts."""
-    from cruise_control_tpu_torch.ops import aggregate
+    from cruise_control_tpu_torch.compilesvc.cache import PersistentCompileCache
 
-    if path is None:
-        root = os.environ.get("XDG_CACHE_HOME") or os.path.join(
-            os.path.expanduser("~"), ".cache")
-        path = os.path.join(root, "cruise_control_tpu_torch", "kernel_cache")
-    os.makedirs(path, exist_ok=True)
-    warm = False
-    try:
-        warm = any(os.scandir(path))
-    except OSError:
-        pass
-    aggregate.set_build_dir(path)
-    return warm
+    return PersistentCompileCache(root=path, enabled=True).activate()

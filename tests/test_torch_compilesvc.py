@@ -19,6 +19,7 @@ import json
 import os
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -116,13 +117,15 @@ def build_dir(monkeypatch):
 
 def test_cache_layout_manifest_and_warm_start(tmp_path, build_dir):
     c = cache.PersistentCompileCache(root=str(tmp_path), enabled=True)
-    assert c.activate(platform_name="cuda", goal_stack_hash="abc", bucket="R64") is False
+    assert c.activate(platform_name="cuda") is False
     want = tmp_path / f"v{cache.SCHEMA_VERSION}" / f"cuda-{cache.machine_fingerprint()}" \
-        / f"torch-{cache.toolchain_version()}" / "abc" / "R64"
-    # The same axes as the JAX package's key, with torch+CUDA for jaxlib.
+        / f"torch-{cache.toolchain_version()}"
+    # The JAX package's versioned prefix, with torch+CUDA for jaxlib; its
+    # goal-stack and bucket levels key executables, not the kernel library.
     jwant = jcache.PersistentCompileCache(root=str(tmp_path)).cache_dir("cuda", "abc", "R64")
-    assert os.path.relpath(jwant, tmp_path).split(os.sep)[:2] == \
-        os.path.relpath(want, tmp_path).split(os.sep)[:2]
+    jparts = os.path.relpath(jwant, tmp_path).split(os.sep)
+    assert jparts[:2] == os.path.relpath(want, tmp_path).split(os.sep)[:2]
+    assert jparts[2].startswith("jaxlib-") and jparts[3:] == ["abc", "R64"]
     assert c.active_dir == str(want) and aggregate._BUILD_DIR == want
     with open(want / "cc-cache-manifest.json") as f:
         assert json.load(f) == {"schema": cache.SCHEMA_VERSION,
@@ -133,7 +136,7 @@ def test_cache_layout_manifest_and_warm_start(tmp_path, build_dir):
     # A library built there makes the next process's activation warm.
     (want / "libcc_aggregate_0123.so").write_bytes(b"x" * 10)
     again = cache.PersistentCompileCache(root=str(tmp_path), enabled=True)
-    assert again.activate(platform_name="cuda", goal_stack_hash="abc", bucket="R64") is True
+    assert again.activate(platform_name="cuda") is True
     assert again.stats()["entries"] == 1 and again.stats()["bytes"] == 10
 
 
@@ -154,6 +157,49 @@ def test_cache_off_on_cpu_and_when_disabled(tmp_path, build_dir):
     off = cache.PersistentCompileCache(root=str(tmp_path))
     assert off.activate(platform_name="cuda") is False and off.active_dir is None
     assert aggregate._BUILD_DIR == before and not os.listdir(tmp_path)
+
+
+def test_hermetic_cache_is_the_cache_activation(tmp_path, build_dir, monkeypatch):
+    """``hermetic.enable_persistent_compilation_cache`` activates the
+    persistent cache (its versioned entry under the per-user root by
+    default): off without a card, and "warm" once a library is there."""
+    from cruise_control_tpu_torch.utils import hermetic
+
+    before = aggregate._BUILD_DIR
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path))
+    assert hermetic.enable_persistent_compilation_cache() is False
+    assert aggregate._BUILD_DIR == before and not os.listdir(tmp_path)
+    monkeypatch.setattr(cache, "_default_platform", lambda: "cuda")
+    assert hermetic.enable_persistent_compilation_cache() is False
+    want = cache.PersistentCompileCache().cache_dir("cuda")
+    assert want.startswith(cache.default_root()) and aggregate._BUILD_DIR == Path(want)
+    (Path(want) / "libcc_aggregate_0123.so").write_bytes(b"x")
+    assert hermetic.enable_persistent_compilation_cache(str(tmp_path / "elsewhere")) is False
+    assert hermetic.enable_persistent_compilation_cache() is True
+
+
+def test_hermetic_force_cpu_hides_the_cards(monkeypatch):
+    import torch
+
+    from cruise_control_tpu_torch.utils import hermetic
+
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "0")
+    hermetic.force_cpu()
+    assert os.environ["CUDA_VISIBLE_DEVICES"] == ""
+    assert hermetic.probe_cuda() is False        # hidden: not even probed
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    with pytest.raises(RuntimeError, match="after CUDA was initialized"):
+        hermetic.force_cpu()
+
+
+def test_hermetic_probe_cuda_in_a_subprocess(monkeypatch):
+    import torch
+
+    from cruise_control_tpu_torch.utils import hermetic
+
+    monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+    assert hermetic.probe_cuda(timeout_s=120) is torch.cuda.is_available()
+    assert hermetic.probe_cuda(timeout_s=0.001) is False     # a probe that hangs
 
 
 def test_broken_cache_deactivates_never_raises(tmp_path, build_dir):
@@ -337,8 +383,10 @@ WIDTH = 64
 def test_six_lane_batch_chunked_on_width_four_equals_jax():
     """A 6-lane remove batch with width 4 already run on a (1, 2, 4, 8)
     ladder runs as two 4-lane blocks (the second rides 4 with two padding
-    lanes) in both packages; jitter off, every lane's outcome is equal."""
+    lanes) in both packages; jitter off, every lane's outcome is equal.  The
+    port solves only the six real lanes."""
     got = {}
+    solves = []
     for name in ("port", "jax"):
         if name == "port":
             svc = service.CompileService(policy=service.ShapeBucketPolicy(
@@ -347,6 +395,9 @@ def test_six_lane_batch_chunked_on_width_four_equals_jax():
             st, pl, mt = trc.generate(trc.ClusterProperties(**SMALL), device="cpu")
             opt = GoalOptimizer(goal_names=REMOVE_GOALS, solver=GoalSolver(dst_jitter_frac=0.0))
             tel = telemetry.telemetry()
+            solve_goal = opt.solver.optimize_goal
+            opt.solver.optimize_goal = lambda *a, **kw: solves.append(a[0].name) or solve_goal(
+                *a, **kw)
         else:
             svc = jservice.CompileService(policy=jservice.ShapeBucketPolicy(
                 lane_ladder=(1, 2, 4, 8), max_lane_bucket=8))
@@ -367,6 +418,7 @@ def test_six_lane_batch_chunked_on_width_four_equals_jax():
                          lanes=int(np.asarray(res.final_placements.broker).shape[0]))
     assert got["port"] == got["jax"]
     assert got["port"]["plan"] == [(4, 0, 4), (4, 4, 2)] and got["port"]["lanes"] == 6
+    assert len(solves) == len(SETS) * len(got["port"]["goals"])
 
 
 # ------------------------------------------------------- facade warmup

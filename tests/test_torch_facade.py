@@ -576,8 +576,10 @@ def test_port_facade_defaults_to_the_card_and_never_reruns_on_cpu():
     cc, *_ = build_stack(m)
     assert cc.device == torch.device("cpu") and cc.resident.device == torch.device("cpu")
 
+    from tests.test_torch_resilience import CUDA_KERNEL_FAULTS, torch_cuda_error
+
     def boom(*args, **kwargs):
-        raise RuntimeError("CUDA error: an illegal memory access was encountered")
+        raise torch_cuda_error(*CUDA_KERNEL_FAULTS[0])
 
     cc.optimizer.optimizations = boom
     with pytest.raises(RuntimeError, match="CUDA error"):

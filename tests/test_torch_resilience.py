@@ -519,44 +519,125 @@ def _chained(inner):
     return outer
 
 
+# What torch's C10_CUDA_CHECK raises (c10/cuda/CUDAException.cpp): "CUDA
+# error: " and the runtime's error string, a help line naming the cudaError
+# enum (absent before torch 2.6), the asynchronous-report hint unless
+# CUDA_LAUNCH_BLOCKING=1, then one of three notes on device-side assertions.
+_ASYNC_HINT = ("\nCUDA kernel errors might be asynchronously reported at some other API call, "
+               "so the stacktrace below might be incorrect.\n"
+               "For debugging consider passing CUDA_LAUNCH_BLOCKING=1")
+_DSA_NOTES = {
+    "dsa-compile": "Compile with `TORCH_USE_CUDA_DSA` to enable device-side assertions.\n",
+    "dsa-runtime": "Device-side assertion tracking was not enabled by user.",
+    "dsa-omitted": ("Device-side assertions were explicitly omitted for this error check; "
+                    "the error probably arose while initializing the DSA handlers."),
+}
+TORCH_FORMATS = {
+    f"{'blocking' if blocking else 'async'}-{dsa}": dict(blocking=blocking, dsa=dsa)
+    for blocking in (False, True) for dsa in _DSA_NOTES}
+TORCH_FORMATS["no-help-line"] = dict(blocking=False, dsa="dsa-compile", help_line=False)
+
+
+def torch_cuda_error(text, name, blocking=False, dsa="dsa-compile", help_line=True):
+    """The exception torch raises for the CUDA runtime's ``name`` error."""
+    import torch
+    msg = "CUDA error: " + text
+    if help_line:
+        msg += (f"\nSearch for `{name}' in https://docs.nvidia.com/cuda/cuda-runtime-api/"
+                "group__CUDART__TYPES.html for more information.")
+    if not blocking:
+        msg += _ASYNC_HINT
+    msg += "\n" + _DSA_NOTES[dsa]
+    return getattr(torch, "AcceleratorError", RuntimeError)(msg)
+
+
+# The CUDA runtime's device-loss errors, then its errors of a fault in the
+# port's own code: (error string, enum name).
+CUDA_DEVICE_LOSS = [
+    ("uncorrectable ECC error encountered", "cudaErrorECCUncorrectable"),
+    ("CUDA-capable device(s) is/are busy or unavailable", "cudaErrorDevicesUnavailable"),
+    ("no CUDA-capable device is detected", "cudaErrorNoDevice"),
+]
+CUDA_KERNEL_FAULTS = [
+    ("an illegal memory access was encountered", "cudaErrorIllegalAddress"),
+    ("misaligned address", "cudaErrorMisalignedAddress"),
+    ("an illegal instruction was encountered", "cudaErrorIllegalInstruction"),
+    ("device-side assert triggered", "cudaErrorAssert"),
+    ("invalid argument", "cudaErrorInvalidValue"),
+    ("out of memory", "cudaErrorMemoryAllocation"),
+    ("no kernel image is available for execution on the device",
+     "cudaErrorNoKernelImageForDevice"),
+]
+
 # The JAX package's cases (tests/test_resilience.py), then the CUDA runtime's
-# device-loss messages.
+# device-loss errors as torch raises them and NVML's lost GPU.
 DEVICE_LOSS = [
     XlaRuntimeError("anything"), RuntimeError("DEVICE_LOST: tpu gone"), OSError("Socket closed"),
     _chained(XlaRuntimeError("inner")),
-    RuntimeError("CUDA error: uncorrectable ECC error encountered"),
-    RuntimeError("CUDA error: CUDA-capable device(s) is/are busy or unavailable"),
-    RuntimeError("CUDA error: no CUDA-capable device is detected"),
+    *(torch_cuda_error(text, name) for text, name in CUDA_DEVICE_LOSS),
     RuntimeError("Unable to determine the device handle for GPU0000:17:00.0: "
                  "GPU is lost.  Reboot the system to recover this GPU"),
     RuntimeError("the GPU has fallen off the bus"),
-    _chained(RuntimeError("cudaErrorECCUncorrectable")),
+    _chained(torch_cuda_error(*CUDA_DEVICE_LOSS[0])),
 ]
 NOT_DEVICE_LOSS = [
     ValueError("plain bad input"), RuntimeError("ordinary failure"),
-    RuntimeError("CUDA error: an illegal memory access was encountered"),
-    RuntimeError("CUDA error: misaligned address"),
-    RuntimeError("CUDA error: an illegal instruction was encountered"),
-    RuntimeError("CUDA error: device-side assert triggered"),
-    RuntimeError("CUDA error: invalid argument"),
+    *(torch_cuda_error(text, name) for text, name in CUDA_KERNEL_FAULTS),
     RuntimeError("CUDA out of memory. Tried to allocate 20.00 GiB"),
-    RuntimeError("CUDA error: no kernel image is available for execution on the device"),
     RuntimeError("nvcc failed (1):\naggregate.cu(12): error"),
     RuntimeError("nvcc not found (set CUDA_HOME): the aggregate kernel is built from source"),
     RuntimeError("aggregate kernel launch failed: CUDA error 46"),
     RuntimeError("aggregate kernel occupancy query failed: -1"),
     # A kernel fault anywhere in the chain wins over a device-loss marker.
     _chained(RuntimeError("UNAVAILABLE: CUDA error: an illegal memory access was encountered")),
+    _chained(_chained(torch_cuda_error(*CUDA_KERNEL_FAULTS[0]))),
 ]
 
 
-@pytest.mark.parametrize("exc", DEVICE_LOSS + NOT_DEVICE_LOSS, ids=lambda e: str(e)[:40])
+@pytest.mark.parametrize("exc", DEVICE_LOSS + NOT_DEVICE_LOSS,
+                         ids=lambda e: str(e).replace("CUDA error: ", "").split("\n")[0][:40])
 def test_is_device_failure_classification(exc):
     from cruise_control_tpu.resilience.failover import is_device_failure as jis_device_failure
     got = resilience.is_device_failure(exc)
     assert got == any(exc is e for e in DEVICE_LOSS)
     if any(exc is e for e in DEVICE_LOSS[:4] + NOT_DEVICE_LOSS[:2]):
         assert got == jis_device_failure(exc)       # the JAX package's own cases
+
+
+@pytest.mark.parametrize("fmt", list(TORCH_FORMATS))
+@pytest.mark.parametrize("error", CUDA_DEVICE_LOSS + CUDA_KERNEL_FAULTS,
+                         ids=lambda e: e[1])
+def test_torch_cuda_errors_classified_on_the_runtime_text(error, fmt):
+    """Every line torch adds to a CUDA error, in each of its forms, leaves the
+    verdict to the runtime's own error: torch's note on device-side
+    assertions does not make a lost card the port's own fault."""
+    exc = torch_cuda_error(*error, **TORCH_FORMATS[fmt])
+    assert resilience.is_device_failure(exc) == (error in CUDA_DEVICE_LOSS)
+    assert resilience.is_device_failure(_chained(exc)) == (error in CUDA_DEVICE_LOSS)
+
+
+# What torch 2.11.0+cu128 raised on an H100 for a device ordinal past the
+# last card (chip_smoke.py's real_cuda_error).
+TORCH_INVALID_ORDINAL = (
+    "CUDA error: invalid device ordinal\n"
+    "GPU device may be out of range, do you have enough GPUs?" + _ASYNC_HINT + "\n"
+    + _DSA_NOTES["dsa-compile"])
+
+
+def test_smoke_words_its_injected_errors_as_torch_does():
+    """``chip_smoke.py`` words its injected errors from a real one caught on
+    the card: from torch 2.11's wording they equal :func:`torch_cuda_error`'s
+    and classify as the runtime's error does."""
+    import chip_smoke as smoke
+
+    import torch
+
+    real = getattr(torch, "AcceleratorError", RuntimeError)(TORCH_INVALID_ORDINAL)
+    assert not resilience.is_device_failure(real)
+    for error, loss in ((smoke.PLATFORM_DEVICE_LOSS, True), (smoke.PLATFORM_KERNEL_FAULT, False)):
+        injected = smoke.like_real(real, error)
+        assert type(injected) is type(real) and str(injected) == str(torch_cuda_error(*error))
+        assert resilience.is_device_failure(injected) is loss
 
 
 def test_torch_oom_error_type_is_not_device_loss():
@@ -589,7 +670,7 @@ def test_solver_cpu_failover_tags_degraded():
                           model_generation=None, budget=None):
             self.calls.append(model_generation)
             if len(self.calls) == 1:
-                raise RuntimeError("CUDA error: uncorrectable ECC error encountered")
+                raise torch_cuda_error(*CUDA_DEVICE_LOSS[0])
             return "solved"
 
     opt = _FlakyOptimizer()
@@ -609,7 +690,7 @@ def test_solver_cpu_failover_tags_degraded():
     assert cc.health()["probes"]["device"]["status"] == "ready"
 
     def kernel_fault(*a, **k):
-        raise RuntimeError("CUDA error: an illegal memory access was encountered")
+        raise torch_cuda_error(*CUDA_KERNEL_FAULTS[0])
 
     opt.optimizations = kernel_fault
     with pytest.raises(RuntimeError, match="illegal memory access"):
@@ -633,7 +714,7 @@ def test_solver_failover_invalidates_resident_model():
         calls["n"] += 1
         calls["devices"].append(state.leader_load.device.type)
         if calls["n"] == 1:
-            raise RuntimeError("CUDA error: GPU is lost")
+            raise torch_cuda_error(*CUDA_DEVICE_LOSS[0], blocking=True, dsa="dsa-runtime")
         return real(state, placement, meta, options=options,
                     model_generation=model_generation, budget=budget)
 
