@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cards N     # the multi-card solve alone, N >= 2 cards
 
 Builds the port's hand-written kernel from the sources in this checkout,
 holds it against its plain PyTorch version at the shapes the main path and
@@ -38,8 +39,14 @@ through the broker simulator's process, and the Prometheus sampler); then
 the platform layers at BASELINE #3 (``main.build_app`` with the warmup
 daemon on, the lane-chunk planner, the memory ledger and its headroom guard,
 one injected device failover; the service's persistent kernel-build cache is
-started twice in the ``main`` phase); and the
-resident steady state of bench config #6 at 1M replicas.  Each phase counts the kernel's launches.  Prints one JSON object
+started twice in the ``main`` phase); the
+resident steady state of bench config #6 at 1M replicas; multi-process solves at
+BASELINE #3 (``parallel``: ``propose_multihost`` and a what-if batch at world
+size 1 over NCCL, with the collectives counted and timed, and at world size 2
+over gloo in two processes on the one card); and the scenario fuzzer
+(``fuzz``: the fixed-seed corpus with every invariant, one storm cycle, bench
+config #9's execution).  With ``--cards N`` it runs only the sharded solve
+over NCCL, one rank a card, at world size 2 and N.  Each phase counts the kernel's launches.  Prints one JSON object
 per phase; the last line is ``{"ok": true, "device": {...}}``.  Exits
 non-zero, printing no result, when CUDA is unavailable or the port's package
 is not beside this script, and whenever a check fails.
@@ -255,6 +262,80 @@ PLATFORM_WARMUP_S = 600
 PLATFORM_DEVICE_LOSS = ("uncorrectable ECC error encountered", "cudaErrorECCUncorrectable")
 PLATFORM_KERNEL_FAULT = ("an illegal memory access was encountered", "cudaErrorIllegalAddress")
 PLATFORM_FAILOVER_GOAL = "RackAwareGoal"
+# The parallel phase at BASELINE #3: removal lanes of its what-if batch, and
+# the bound on the two gloo ranks' child processes.
+PARALLEL_LANES = 4
+PARALLEL_CHILD_TIMEOUT_S = 600
+PARALLEL_CHILD = r"""
+import hashlib, json, sys, time
+import torch, torch.distributed as dist
+rank, addr = int(sys.argv[1]), sys.argv[2]
+props, pads, lanes, width = (json.loads(sys.argv[3]), json.loads(sys.argv[4]),
+                             int(sys.argv[5]), int(sys.argv[6]))
+device, world, backend = sys.argv[7], int(sys.argv[8]), sys.argv[9]
+compare = sys.argv[10] == "1"
+from cruise_control_tpu_torch.parallel import mesh, multihost
+if backend == "nccl":       # one rank a card
+    multihost.initialize(addr, world, rank, device="cuda")
+else:
+    dist.init_process_group("gloo", init_method=f"tcp://{addr}", world_size=world, rank=rank)
+from cruise_control_tpu_torch.analyzer.goals.registry import DEFAULT_GOALS, DEFAULT_HARD_GOALS
+from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+from cruise_control_tpu_torch.ops import aggregate
+from cruise_control_tpu_torch.testing import random_cluster as rc
+from cruise_control_tpu_torch.testing.verifier import verify_placement
+st, pl, mt = rc.generate(rc.ClusterProperties(**props), *pads, device=device)
+given = pl if rank == 0 else pl.replace(broker=torch.zeros_like(pl.broker))
+out = {"rank": rank, "card": str(st.valid.device)}
+calls = [("propose", lambda: multihost.propose_multihost(st, given, mt, goal_names=DEFAULT_GOALS))]
+if compare:     # warm: the sharded propose again, then the unsharded one on this card
+    calls += [("propose_warm", calls[0][1]),
+              ("unsharded", lambda: GoalOptimizer(goal_names=DEFAULT_GOALS).optimizations(
+                  st, pl, mt))]
+calls.append(("lanes", lambda: multihost.batch_remove_scenarios_multihost(
+    st, given, mt, [[b] for b in mt.broker_ids[:lanes]],
+    goal_names=DEFAULT_HARD_GOALS, scenario_parallelism=2, num_candidates=width)))
+for name, call in calls:
+    mesh.reset_calls()
+    aggregate.LAUNCHES = 0
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.monotonic()
+    res = call()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    out[name] = {"wall_s": time.monotonic() - t0, "kernel_launches": aggregate.LAUNCHES,
+                 "collectives": dict(mesh.CALLS)}
+    if name != "lanes":
+        fin = res.final_placement
+        failures = verify_placement(st, pl, mt, fin, goal_names=DEFAULT_HARD_GOALS,
+                                    goal_infos=res.goal_infos)
+        out[name].update(
+            violated_goals_after=res.violated_goals_after, proposals=len(res.proposals),
+            balancedness=res.balancedness_score, verifier=[str(f) for f in failures],
+            digest=hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in (
+                fin.broker, fin.disk, fin.is_leader))).hexdigest())
+    else:
+        valid = st.valid
+        out[name].update(
+            stranded_after=res.stranded_after.tolist(),
+            violated_after=res.violated_after.tolist(),
+            evacuated=[not bool(torch.isin(res.placement_for(s).broker[valid], torch.tensor(
+                [mt.broker_index[b] for b in ids], device=valid.device)).any())
+                for s, ids in enumerate(res.scenario_sets)],
+            digest=hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in (
+                res.final_placements.broker, res.final_placements.disk,
+                res.final_placements.is_leader))).hexdigest())
+print("RESULT " + json.dumps(out), flush=True)
+dist.destroy_process_group()
+"""
+# The fuzz phase: the fixed-seed corpus (one scenario a kind from this seed),
+# the storm's scenario, and bench config #9's stack (bench.py:800-830).
+FUZZ_BASE_SEED = 100
+FUZZ_STORM_SEED = 205
+FUZZ_BENCH9_SEED = 3146
+FUZZ_BENCH9_PARTITIONS = 48
+FUZZ_IDLE_S = 120
 RESIDENT = dict(HEALTHY, seed=3143)
 RESIDENT_MUTATIONS = 64
 RESIDENT_ROUNDS = 3
@@ -3049,6 +3130,287 @@ def resident_phase(aggregate, props, mutations, rounds, device="cuda"):
     return out
 
 
+def collective_wall(fn):
+    """(result, wall s, {kind: s inside it}): ``fn`` run with every
+    ``torch.distributed`` all-reduce, all-gather and broadcast timed between
+    two synchronizes of the card (so each kind's share is its own time)."""
+    import torch
+    import torch.distributed as dist
+    kinds = ("all_reduce", "all_gather", "broadcast")
+    spent = dict.fromkeys(kinds, 0.0)
+    saved = {n: getattr(dist, n) for n in kinds}
+
+    def timed(kind, real):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            got = real(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[kind] += time.monotonic() - t
+            return got
+        return call
+
+    for n, real in saved.items():
+        setattr(dist, n, timed(n, real))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.monotonic() - t0, spent
+    finally:
+        for n, real in saved.items():
+            setattr(dist, n, real)
+
+
+def parallel_phase(aggregate, props, lanes, device="cuda"):
+    """Multi-process solves at ``props`` (``parallel/``): (a) the default
+    stack unsharded, then through ``propose_multihost`` at world size 1 over
+    NCCL (``multihost.initialize``) with its collectives counted, again with
+    each collective timed between synchronizes (the first run also sets up
+    the communicator), and a ``lanes``-lane
+    ``batch_remove_scenarios_multihost`` of the hard goals; (b) world size 2
+    over gloo on the one card (NCCL takes one rank a card): two processes
+    whose rank 1 passes a zeroed placement, each proposing and running the
+    lanes on a (scenario 2) mesh, with identical results on both.  The
+    snapshot is padded to the service's shape bucket, whose replica axis
+    every world size here divides."""
+    import torch
+    import torch.distributed as dist
+    from cruise_control_tpu_torch.analyzer.goals.registry import DEFAULT_GOALS, DEFAULT_HARD_GOALS
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.compilesvc.buckets import ShapeBucketPolicy
+    from cruise_control_tpu_torch.parallel import mesh, multihost
+    from cruise_control_tpu_torch.testing import random_cluster as rc
+    hard = hard_names(DEFAULT_GOALS)
+    _, _, mt = rc.generate(rc.ClusterProperties(**props), device="cpu")
+    pads = list(ShapeBucketPolicy().pad_targets(mt.num_replicas, mt.num_brokers))
+    st, pl, mt = rc.generate(rc.ClusterProperties(**props), *pads, device=device)
+    out = {"padded": pads}
+    aggregate.LAUNCHES = 0
+    t0 = time.monotonic()
+    plain = GoalOptimizer(goal_names=DEFAULT_GOALS).optimizations(st, pl, mt)
+    sync(device)
+    out["unsharded"] = dict(wall_s=time.monotonic() - t0, kernel_launches=aggregate.LAUNCHES,
+                            violated_goals_after=plain.violated_goals_after,
+                            balancedness=plain.balancedness_score)
+    multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, device=device)
+    try:
+        multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, device=device)  # a no-op
+        out["world1"] = dict(backend=dist.get_backend(), world_size=dist.get_world_size())
+        mesh.reset_calls()
+        aggregate.LAUNCHES = 0
+        t0 = time.monotonic()
+        res = multihost.propose_multihost(st, pl, mt, goal_names=DEFAULT_GOALS)
+        sync(device)
+        wall = time.monotonic() - t0
+        launches, calls = aggregate.LAUNCHES, dict(mesh.CALLS)
+        check(launches > 0, "parallel: the sharded propose launched the kernel 0 times")
+        check(calls["all_reduce"] > 0 and calls["all_gather"] > 0,
+              f"parallel: the sharded propose issued no collectives {calls}")
+        check(not set(res.violated_goals_after) & hard,
+              f"parallel: hard goals violated after: {res.violated_goals_after}")
+        check_proposals([p.to_dict() for p in res.proposals])
+        judged = judge(aggregate, "parallel propose", st, pl, mt, res.final_placement, device,
+                       goal_names=sorted(hard), goal_infos=res.goal_infos)
+        _, timed_wall, in_collectives = collective_wall(
+            lambda: multihost.propose_multihost(st, pl, mt, goal_names=DEFAULT_GOALS))
+        in_all = sum(in_collectives.values())
+        out["world1"].update(
+            propose_wall_s=wall, kernel_launches=launches, collectives=calls,
+            violated_goals_after=res.violated_goals_after,
+            unsharded_violated_goals_after=plain.violated_goals_after,
+            balancedness=res.balancedness_score, proposals=len(res.proposals),
+            rounds=[i.rounds for i in res.goal_infos], verifier=judged,
+            timed_wall_s=timed_wall, collectives_s=in_all, collectives_s_by_kind=in_collectives,
+            collectives_share=in_all / timed_wall)
+        sets = [[b] for b in mt.broker_ids[:lanes]]
+        mesh.reset_calls()
+        lres, lwall, llaunches = run_lanes(aggregate, lambda: (
+            multihost.batch_remove_scenarios_multihost(
+                st, pl, mt, sets, goal_names=DEFAULT_HARD_GOALS, scenario_parallelism=1,
+                num_candidates=LANE_WIDTH)), device)
+        check(llaunches > 0, "parallel lanes: the kernel launched 0 times")
+        check_removal(lres, st, mt, DEFAULT_HARD_GOALS, "parallel lanes")
+        out["world1_lanes"] = dict(collectives=dict(mesh.CALLS),
+                                   **lane_summary(lres, lwall, llaunches))
+    finally:
+        dist.destroy_process_group()
+    del st, pl, plain, res, lres
+
+    # (b) two ranks over gloo on the card.
+    ranks, wall = run_ranks(aggregate, props, pads, lanes, 2, "gloo", device)
+    out["world2_gloo"] = dict(processes_wall_s=wall, equal_on_all_ranks=True,
+                              propose_wall_s=[r["propose"]["wall_s"] for r in ranks],
+                              lanes_wall_s=[r["lanes"]["wall_s"] for r in ranks])
+    return out
+
+
+def run_ranks(aggregate, props, pads, lanes, world, backend, device="cuda", compare=False):
+    """``world`` processes of ``PARALLEL_CHILD`` over ``backend`` (gloo: all
+    on one card or the CPU; NCCL: one a card), rank 1 and up passing a
+    zeroed placement; each proposes the default stack through
+    ``propose_multihost`` (``compare``: again warm, then unsharded on its
+    card) and runs ``lanes`` removal lanes of the hard goals on a
+    (scenario 2) mesh.  Checks every rank's results and that the ranks'
+    are identical; returns (each rank's results, the processes' wall s)."""
+    what = f"parallel world {world} ({backend})"
+    with tempfile.TemporaryDirectory() as tmp:
+        script = os.path.join(tmp, "rank.py")
+        with open(script, "w") as f:
+            f.write(PARALLEL_CHILD)
+        # Ranks that share the host's cores: one compute thread each, or
+        # their spinning threads starve each other's collectives.
+        env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+        addr = f"127.0.0.1:{free_port()}"
+        t0 = time.monotonic()
+        procs = [subprocess.Popen([sys.executable, script, str(r), addr, json.dumps(props),
+                                   json.dumps(pads), str(lanes), str(LANE_WIDTH), device,
+                                   str(world), backend, "1" if compare else "0"],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True, env=env)
+                 for r in range(world)]
+        try:
+            outs = [p.communicate(timeout=PARALLEL_CHILD_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.monotonic() - t0
+    ranks = []
+    for p, text in zip(procs, outs):
+        line = [ln for ln in text.splitlines() if ln.startswith("RESULT ")]
+        check(p.returncode == 0 and line, f"{what}: a rank failed: {text[-2000:]}")
+        ranks.append(json.loads(line[-1][len("RESULT "):]))
+    # The ranks' own lines, before any check reads them.
+    emit(f"parallel_world{world}_{backend}", processes_wall_s=wall, ranks=ranks)
+    from cruise_control_tpu_torch.analyzer.goals.registry import DEFAULT_GOALS
+    hard = hard_names(DEFAULT_GOALS)
+    solves = [n for n in ("propose", "propose_warm", "unsharded") if n in ranks[0]]
+    for r in ranks:
+        check(all(r[n]["kernel_launches"] > 0 for n in solves + ["lanes"]),
+              f"{what}, rank {r['rank']}: the kernel launched 0 times")
+        for n in solves:
+            check(not set(r[n]["violated_goals_after"]) & hard,
+                  f"{what} {n}: hard goals violated: {r[n]['violated_goals_after']}")
+            check(not r[n]["verifier"], f"{what} {n}: the verifier failed: {r[n]['verifier']}")
+        check(all(r["lanes"]["evacuated"]) and not any(r["lanes"]["stranded_after"]),
+              f"{what} lanes: not evacuated: {r['lanes']}")
+    for n in [n for n in solves if n != "unsharded"] + ["lanes"]:
+        check(len({r[n]["digest"] for r in ranks}) == 1, f"{what}: the ranks' {n} differ")
+    return ranks, wall
+
+
+def cards_main(cards):
+    """``--cards N``: the sharded propose and the scenario-parallel lanes at
+    BASELINE #3 over NCCL, one rank a card, at world size 2 and N, each rank
+    also timing its warm sharded propose against the unsharded one."""
+    import torch
+    have = torch.cuda.device_count()
+    if have < cards:
+        print(f"chip_smoke: --cards {cards} but {have} cards", file=sys.stderr)
+        return 2
+    from cruise_control_tpu_torch.compilesvc.buckets import ShapeBucketPolicy
+    from cruise_control_tpu_torch.ops import aggregate
+    from cruise_control_tpu_torch.testing import random_cluster as rc
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    emit("env", torch=torch.__version__, cuda=torch.version.cuda, device_count=have,
+         nvidia_smi=smi)
+    emit("build", seconds=aggregate.load_seconds())
+    _, _, mt = rc.generate(rc.ClusterProperties(**BASELINE3), device="cpu")
+    pads = list(ShapeBucketPolicy().pad_targets(mt.num_replicas, mt.num_brokers))
+    for world in sorted({2, cards}):
+        ranks, wall = run_ranks(aggregate, BASELINE3, pads, PARALLEL_LANES, world, "nccl",
+                                compare=True)
+        emit("cards", world=world, backend="nccl", padded=pads, processes_wall_s=wall,
+             **{n: [r[n]["wall_s"] for r in ranks]
+                for n in ("propose", "propose_warm", "unsharded", "lanes")},
+             collectives=ranks[0]["propose_warm"]["collectives"],
+             launches=ranks[0]["propose_warm"]["kernel_launches"])
+    print(smi[0] if smi else "not measured", flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": have}}), flush=True)
+    return 0
+
+
+def fuzz_phase(aggregate, device="cuda"):
+    """The scenario fuzzer on the card (``fuzzsvc/``): (a) the fixed-seed
+    corpus, one scenario a kind (seeds 100-107), every invariant of its kind,
+    each invariant's kernel launches counted on its own (the shared base
+    solve's apart); (b) one storm cycle; (c) bench config #9: the storm
+    stack's rebalance executed, its execution wall and moves a second."""
+    from cruise_control_tpu_torch.fuzzsvc import (
+        SCENARIO_KINDS, Materialized, build_storm_stack, generate_scenario, run_invariants,
+        run_storm)
+    from cruise_control_tpu_torch.fuzzsvc.storm import _wait_idle
+    from cruise_control_tpu_torch.obsvc.execution import execution
+    out = {"corpus": []}
+    for i, kind in enumerate(SCENARIO_KINDS):
+        sc = generate_scenario(FUZZ_BASE_SEED + i, kind=kind)
+        m = Materialized(sc, device=device)
+        aggregate.LAUNCHES = 0
+        t0 = time.monotonic()
+        base = m.base
+        sync(device)
+        row = dict(scenario=sc.name, base_s=time.monotonic() - t0,
+                   base_launches=aggregate.LAUNCHES,
+                   base_violated_after=base.violated_goals_after, invariants={})
+        for name in sc.invariants:
+            aggregate.LAUNCHES = 0
+            r = run_invariants(sc, which=[name], materialized=m)[0]
+            sync(device)
+            row["invariants"][name] = dict(ok=r.ok, s=r.elapsed_s,
+                                           kernel_launches=aggregate.LAUNCHES)
+            check(r.ok, f"fuzz {sc.name}: {r}")
+        check(row["base_launches"] > 0, f"fuzz {sc.name}: the base solve launched 0 times")
+        out["corpus"].append(row)
+    aggregate.LAUNCHES = 0
+    t0 = time.monotonic()
+    rep = run_storm(generate_scenario(FUZZ_STORM_SEED, kind="maintenance_window"), cycles=1,
+                    device=device)
+    out["storm"] = dict(wall_s=time.monotonic() - t0, kernel_launches=aggregate.LAUNCHES,
+                        cycles=rep.cycles_run, anomalies=rep.anomalies_detected,
+                        fixes_started=rep.fixes_started, audit_entries=len(rep.audit),
+                        problems=rep.problems)
+    check(rep.ok, f"fuzz storm: {rep.problems}")
+    check(aggregate.LAUNCHES > 0, "fuzz storm: the fixer's solve launched 0 times")
+
+    rec = execution()
+    prev = rec.enabled
+    rec.configure(enabled=True)
+    rec.drain()
+    stack = build_storm_stack(generate_scenario(FUZZ_BENCH9_SEED, kind="exp_skew"),
+                              num_brokers=6, partitions=FUZZ_BENCH9_PARTITIONS, rf=2,
+                              polls_to_finish=2, device=device)
+    try:
+        aggregate.LAUNCHES = 0
+        t0 = time.monotonic()
+        res = stack.cc.rebalance(dryrun=False)
+        idle = _wait_idle(stack.cc, FUZZ_IDLE_S)
+        wall = time.monotonic() - t0
+        batches = rec.drain()
+        check(idle, f"fuzz config #9: the executor never went idle in {FUZZ_IDLE_S} s")
+        check(batches, "fuzz config #9: no execution batch recorded")
+        b = batches[-1]
+        out["bench_config_9"] = dict(
+            wall_s=wall, kernel_launches=aggregate.LAUNCHES, executed=bool(res.executed),
+            execute_ms=b["durationMs"], moves_per_s=b["movesPerSecond"], moves=b["moves"],
+            completed=b["completed"], dead=b["dead"], aborted=b["aborted"],
+            provenance_paths=b["pathHistogram"])
+        check(aggregate.LAUNCHES > 0, "fuzz config #9: the solve launched 0 times")
+        check(res.executed and b["completed"] == b["moves"] > 0,
+              f"fuzz config #9: not every move completed: {out['bench_config_9']}")
+    finally:
+        stack.cc.anomaly_detector.shutdown()
+        rec.configure(enabled=prev)
+        rec.reset()
+    return out
+
+
 def load_consistent(state, placement, agg):
     """The kernel-computed broker loads against a float64 numpy recompute
     from the placement (the verifier's LOAD_CONSISTENCY check)."""
@@ -3279,6 +3641,10 @@ def main():
     emit("platform", **platform_phase(aggregate, BASELINE3))
     emit("resident", **resident_phase(aggregate, RESIDENT, RESIDENT_MUTATIONS,
                                       RESIDENT_ROUNDS))
+    # ---- multi-process solves at BASELINE #3 (NCCL at world size 1, gloo at
+    # 2 on the one card), then the scenario fuzzer and its storm.
+    emit("parallel", **parallel_phase(aggregate, BASELINE3, PARALLEL_LANES))
+    emit("fuzz", **fuzz_phase(aggregate))
     # The one CPU rerun of the whole run is the platform phase's injected one.
     from cruise_control_tpu_torch.common.metrics import registry
     from cruise_control_tpu_torch.resilience import SOLVER_FAILOVER_SENSOR
@@ -3310,6 +3676,14 @@ def main():
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--cards"]:
+            import torch
+            if not torch.cuda.is_available():
+                print("chip_smoke: torch.cuda.is_available() is false; nothing run",
+                      file=sys.stderr)
+                sys.exit(2)
+            sys.path.insert(0, REPO)
+            sys.exit(cards_main(int(sys.argv[2])))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -72,6 +72,10 @@ class GoalContext:
     min_topic_leaders: torch.Tensor                 # i32 scalar
     min_leader_topic_mask: torch.Tensor             # bool[T]
     num_racks: int = 1
+    # This rank's part of a replica-sharded solve
+    # (:class:`~cruise_control_tpu_torch.parallel.mesh.ReplicaShard`, set by
+    # ``GoalSolver.shard_inputs``); None solves unsharded.
+    shard: Optional[object] = None
 
     @property
     def num_partitions(self) -> int:
@@ -227,19 +231,23 @@ def replica_role_load(gctx: GoalContext, placement: Placement, r) -> torch.Tenso
                        gctx.state.leader_load[r], gctx.state.follower_load[r])
 
 
-def aggregate_channels(state: ClusterState, placement: Placement) -> torch.Tensor:
+def aggregate_channels(state: ClusterState, placement: Placement,
+                       rows: slice = slice(None)) -> torch.Tensor:
     """f32[R, 8]: the broker-axis channels of the aggregate recompute — 4
     resource loads in the current role, valid, leader, potential NW-out and
-    leader bytes-in — zero on padded rows."""
-    load = torch.where(placement.is_leader[:, None], state.leader_load,
-                       state.follower_load) * state.valid[:, None]
-    leader = (state.valid & placement.is_leader).to(torch.float32)
+    leader bytes-in — zero on padded rows; only ``rows`` of R when given."""
+    valid = state.valid[rows]
+    is_leader = placement.is_leader[rows]
+    leader_load = state.leader_load[rows]
+    load = torch.where(is_leader[:, None], leader_load,
+                       state.follower_load[rows]) * valid[:, None]
+    leader = (valid & is_leader).to(torch.float32)
     return torch.cat([
         load,
-        state.valid[:, None].to(torch.float32),
+        valid[:, None].to(torch.float32),
         leader[:, None],
-        (state.leader_load[:, Resource.NW_OUT] * state.valid)[:, None],
-        (state.leader_load[:, Resource.NW_IN] * leader)[:, None],
+        (leader_load[:, Resource.NW_OUT] * valid)[:, None],
+        (leader_load[:, Resource.NW_IN] * leader)[:, None],
     ], dim=1)
 
 
@@ -248,33 +256,49 @@ def compute_aggregates(gctx: GoalContext, placement: Placement) -> Aggregates:
 
     The eight broker-axis channels (:func:`aggregate_channels`) are reduced
     in ONE pass over the replica axis by :func:`broker_channel_sums` — the
-    hand-written kernel on CUDA, its plain version on the CPU."""
+    hand-written kernel on CUDA, its plain version on the CPU.  In a
+    replica-sharded solve (``gctx.shard``) every sum runs on the rank's rows
+    only and one all-reduce over the replica group completes them all."""
     state = gctx.state
     b = state.num_brokers_padded
     t = gctx.num_topics
     d = state.num_disks_per_broker
-    channels = aggregate_channels(state, placement)
-    sums = broker_channel_sums(channels, placement.broker, b)
+    shard = gctx.shard
+    rows = slice(None) if shard is None else shard.rows
+    channels = aggregate_channels(state, placement, rows)
+    broker = placement.broker[rows]
+    sums = broker_channel_sums(channels, broker, b)
+    valid = state.valid[rows]
+    valid_i = valid.to(torch.int32)
+    leader_i = (valid & placement.is_leader[rows]).to(torch.int32)
+    flat = state.topic[rows] * b + broker
+    topic_counts = segment_sum(valid_i, flat, t * b)
+    topic_leader_counts = segment_sum(leader_i, flat, t * b)
+    dflat = broker * d + placement.disk[rows]
+    disk_load = segment_sum(channels[:, Resource.DISK].contiguous(), dflat, b * d)
+    if shard is not None:
+        # One all-reduce for all four partial sums; counts ride in f32,
+        # exact up to 2^24 rows.
+        packed = shard.sum(torch.cat([sums.reshape(-1), topic_counts.to(torch.float32),
+                                      topic_leader_counts.to(torch.float32), disk_load]))
+        sums, topic_counts, topic_leader_counts, disk_load = torch.split(
+            packed, [sums.numel(), t * b, t * b, b * d])
+        sums = sums.reshape(b, -1)
+        topic_counts = topic_counts.to(torch.int32)
+        topic_leader_counts = topic_leader_counts.to(torch.int32)
     broker_load = sums[:, :4].contiguous()
     # Counts are exact in f32 up to 2^24 — far beyond padded R.
     replica_counts = sums[:, 4].to(torch.int32)
     leader_counts = sums[:, 5].to(torch.int32)
     potential = sums[:, 6].contiguous()
     leader_bytes_in = sums[:, 7].contiguous()
-    valid_i = state.valid.to(torch.int32)
-    leader_i = (state.valid & placement.is_leader).to(torch.int32)
     host_load = segment_sum(broker_load, state.host, gctx.num_hosts)
-    flat = state.topic * b + placement.broker
-    topic_counts = segment_sum(valid_i, flat, t * b).reshape(t, b)
-    topic_leader_counts = segment_sum(leader_i, flat, t * b).reshape(t, b)
-    dflat = placement.broker * d + placement.disk
-    disk_load = segment_sum(channels[:, Resource.DISK].contiguous(), dflat,
-                            b * d).reshape(b, d)
     return Aggregates(
         broker_load=broker_load, host_load=host_load,
         replica_counts=replica_counts, leader_counts=leader_counts,
-        topic_counts=topic_counts, topic_leader_counts=topic_leader_counts,
-        disk_load=disk_load, potential_nw_out=potential,
+        topic_counts=topic_counts.reshape(t, b),
+        topic_leader_counts=topic_leader_counts.reshape(t, b),
+        disk_load=disk_load.reshape(b, d), potential_nw_out=potential,
         leader_bytes_in=leader_bytes_in,
     )
 

@@ -49,6 +49,7 @@ from cruise_control_tpu_torch.obsvc.execution import execution as _execution
 from cruise_control_tpu_torch.obsvc.execution import path_histogram
 from cruise_control_tpu_torch.obsvc.fidelity import fidelity as _fidelity
 from cruise_control_tpu_torch.obsvc.memory import SUBSYS_LANES, measure_bytes, memory_ledger
+from cruise_control_tpu_torch.parallel.mesh import SCENARIO_AXIS, all_gather
 
 LOG = logging.getLogger(__name__)
 
@@ -62,11 +63,6 @@ PARTIAL_SOLVES_SENSOR = "Solver.partial-solves"
 PREEMPTIONS_SENSOR = "Solver.preemptions"
 CANCELLATIONS_SENSOR = "Solver.cancellations"
 PREEMPTION_SENSORS = (PARTIAL_SOLVES_SENSOR, PREEMPTIONS_SENSOR, CANCELLATIONS_SENSOR)
-
-
-# The JAX package gathers multi-host placements to one process here
-# (``_host_local_placement``); one card holds the whole placement, so the port
-# has no counterpart.
 
 
 def _changed_partitions(part_ids: torch.Tensor, a: Placement, b: Placement) -> set:
@@ -267,7 +263,11 @@ class GoalOptimizer:
     """Runs a prioritized goal list over a frozen snapshot; caches the last
     result per model generation (GoalOptimizer.java:196-224 cache
     semantics).  ``relaxation`` turns on the convex-relaxation path for
-    eligible goals (off when None)."""
+    eligible goals (off when None).  ``mesh`` (a
+    :class:`~cruise_control_tpu_torch.parallel.mesh.SolverMesh`) shards every
+    solve's reductions over R across its replica groups and what-if lanes
+    across its scenario groups; every rank of the mesh must make the same
+    calls with the same inputs."""
 
     def __init__(
         self,
@@ -276,15 +276,21 @@ class GoalOptimizer:
         solver: Optional[GoalSolver] = None,
         polish_passes: int = 1,
         relaxation: Optional[relax.RelaxationConfig] = None,
+        mesh=None,
     ):
         self.constraint = constraint or BalancingConstraint()
         self.goal_names = list(goal_names or DEFAULT_GOALS)
         self.solver = solver or GoalSolver(
             max_candidates_per_round=self.constraint.max_candidates_per_round,
             max_rounds_per_goal=self.constraint.max_rounds_per_goal,
+            mesh=mesh,
         )
         # Post-stack re-solve passes for re-violated soft goals (0 disables).
         self.polish_passes = polish_passes
+        if relaxation is not None and self.solver.mesh is not None and self.solver.mesh.size > 1:
+            # Its rounding waves keep moves from each rank's own float sums,
+            # which the ranks of a mesh do not agree on.
+            raise ValueError("the relaxation path takes no mesh of several ranks")
         self.relaxation = relaxation
         self._cache_lock = threading.Lock()
         self._cached: Dict[Tuple, OptimizerResult] = {}
@@ -302,6 +308,14 @@ class GoalOptimizer:
         relax equivalent); cancel-only budgets take it."""
         return (self.relaxation is not None and goal.relax_eligible
                 and (budget is None or not budget.segmented))
+
+    def _check_budget(self, budget) -> None:
+        """A budget's verdict is read from each process's own clock, so ranks
+        of one mesh could stop at different goals and then wait on each
+        other's collectives: a multi-rank mesh takes no budget."""
+        mesh = self.solver.mesh
+        if budget is not None and mesh is not None and mesh.size > 1:
+            raise ValueError("a solve on a mesh of several ranks takes no budget")
 
     # ------------------------------------------------------------- the loop
 
@@ -342,7 +356,9 @@ class GoalOptimizer:
         t0 = time.monotonic()
         reg = registry()
         proposal_timer = reg.timer("GoalOptimizer.proposal-computation-timer")
+        self._check_budget(budget)
         gctx = build_context(state, placement, meta, self.constraint, options)
+        gctx, placement = self.solver.shard_inputs(gctx, placement)
         initial = placement
 
         agg0 = self.solver.aggregates(gctx, placement)
@@ -602,7 +618,9 @@ class GoalOptimizer:
         lane widths already run (or canonical ladder widths), padding lanes
         duplicate the last real lane's masks and are trimmed from the
         result, and the memory ledger's headroom guard may shrink the plan
-        onto narrower blocks or refuse the dispatch (``memory_refused``)."""
+        onto narrower blocks or refuse the dispatch (``memory_refused``).  On
+        a mesh the lanes split over its scenario groups instead
+        (:meth:`_run_scenario_groups`)."""
         options = options or OptimizationOptions()
         goals = (list(goals) if goals is not None
                  else get_goals_by_priority(self.goal_names))
@@ -614,6 +632,55 @@ class GoalOptimizer:
                                                             revive)
         seed = placement if warm_start is None else warm_start
         s_n = len(scenario_sets)
+        sets = [list(map(int, ids)) for ids in scenario_sets]
+        if self.solver.mesh is not None:
+            self._check_budget(budget)
+            gctx, seed = self.solver.shard_inputs(gctx, seed)
+            rounds, moves, violated, stranded, placements = self._run_scenario_groups(
+                gctx, seed, goals, num_candidates, alive_s, excl_move_s, excl_lead_s,
+                budget)
+        else:
+            got = self._run_planned(gctx, state, seed, goals, num_candidates, alive_s,
+                                    excl_move_s, excl_lead_s, budget)
+            if got is None:
+                return BatchScenarioResult(
+                    scenario_sets=sets, goal_names=[],
+                    violated_after=np.zeros((s_n, 0), np.int32),
+                    moves=np.zeros((s_n, 0), np.int32),
+                    rounds=np.zeros((s_n, 0), np.int32),
+                    stranded_after=np.full(s_n, -1, np.int32),
+                    final_placements=Placement(
+                        broker=seed.broker.expand(s_n, -1), disk=seed.disk.expand(s_n, -1),
+                        is_leader=seed.is_leader.expand(s_n, -1)),
+                    preempted=True, memory_refused=True)
+            rounds, moves, violated, stranded, placements = got
+        preempted = rounds.shape[1] < len(goals)
+        if preempted:
+            registry().counter(PREEMPTIONS_SENSOR).inc()
+            registry().counter(PARTIAL_SOLVES_SENSOR).inc()
+            if budget is not None and budget.cancelled():
+                registry().counter(CANCELLATIONS_SENSOR).inc()
+        # Per-lane early-exit rounds: the [S, G] rounds matrix every batch
+        # returns is the per-lane convergence story the recorder keeps.
+        _convergence().record_batch([g.name for g in goals[:rounds.shape[1]]], rounds,
+                                    warm_start=warm_start is not None)
+        return BatchScenarioResult(
+            scenario_sets=sets,
+            goal_names=[g.name for g in goals[:rounds.shape[1]]],
+            violated_after=violated,
+            moves=moves,
+            rounds=rounds,
+            stranded_after=stranded,
+            final_placements=placements,
+            preempted=preempted,
+        )
+
+    def _run_planned(self, gctx, state, seed, goals, num_candidates, alive_s,
+                     excl_move_s, excl_lead_s, budget):
+        """An unsharded batch through the compile service's lane-chunk plan and
+        the memory ledger's headroom guard: (rounds, moves, violated,
+        stranded, placements), or None when the guard refuses it."""
+        s_n = alive_s.shape[0]
         svc = compile_service()
         lane_key = svc.lane_key([g.name for g in goals], state.num_replicas_padded,
                                 state.num_brokers_padded, num_candidates)
@@ -626,18 +693,8 @@ class GoalOptimizer:
         plan, refused = memory_ledger().guard_lane_plan(
             plan, s_n, f"R{state.num_replicas_padded}-C{c}", svc.policy.lane_ladder,
             compiled_widths=svc.compiled_lane_widths(lane_key))
-        sets = [list(map(int, ids)) for ids in scenario_sets]
         if refused:
-            return BatchScenarioResult(
-                scenario_sets=sets, goal_names=[],
-                violated_after=np.zeros((s_n, 0), np.int32),
-                moves=np.zeros((s_n, 0), np.int32),
-                rounds=np.zeros((s_n, 0), np.int32),
-                stranded_after=np.full(s_n, -1, np.int32),
-                final_placements=Placement(
-                    broker=seed.broker.expand(s_n, -1), disk=seed.disk.expand(s_n, -1),
-                    is_leader=seed.is_leader.expand(s_n, -1)),
-                preempted=True, memory_refused=True)
+            return None
         blocks = []
         # Once the budget preempts a block mid-stack, later blocks run only
         # the same solved-goal prefix so every block's [S, G] stats stay
@@ -661,26 +718,55 @@ class GoalOptimizer:
         stranded = np.concatenate([b[3] for b in blocks], axis=0)
         placements = Placement(**{f: torch.cat([getattr(b[4], f) for b in blocks])
                                   for f in ("broker", "disk", "is_leader")})
-        preempted = rounds.shape[1] < len(goals)
-        if preempted:
-            registry().counter(PREEMPTIONS_SENSOR).inc()
-            registry().counter(PARTIAL_SOLVES_SENSOR).inc()
-            if budget is not None and budget.cancelled():
-                registry().counter(CANCELLATIONS_SENSOR).inc()
-        # Per-lane early-exit rounds: the [S, G] rounds matrix every batch
-        # returns is the per-lane convergence story the recorder keeps.
-        _convergence().record_batch([g.name for g in goals[:rounds.shape[1]]], rounds,
-                                    warm_start=warm_start is not None)
-        return BatchScenarioResult(
-            scenario_sets=sets,
-            goal_names=[g.name for g in goals[:rounds.shape[1]]],
-            violated_after=violated,
-            moves=moves,
-            rounds=rounds,
-            stranded_after=stranded,
-            final_placements=placements,
-            preempted=preempted,
-        )
+        return rounds, moves, violated, stranded, placements
+
+    def _run_scenario_groups(self, gctx, seed, goals, num_candidates, alive_s,
+                             excl_move_s, excl_lead_s, budget):
+        """A batch on the mesh (the JAX package's ``scenario_shardings``): the
+        S lanes split into contiguous groups of g = ceil(S / scenario axis),
+        one per scenario coordinate; this rank's replica group solves its
+        coordinate's lanes, and one all-gather over the scenario group gives
+        every rank every lane (where the JAX package gathers its global
+        arrays with ``_host_local_placement``).  As in the JAX package, mesh runs are never
+        chunked by the lane planner, and the headroom guard judges unsharded
+        runs only.  Returns what :meth:`_run_planned` does."""
+        mesh = self.solver.mesh
+        s_n = alive_s.shape[0]
+        n_groups = mesh.shape[SCENARIO_AXIS]
+        g = -(-s_n // n_groups)
+
+        def real(k):
+            return max(0, min(s_n, (k + 1) * g) - k * g)
+
+        k = mesh.coords()[0]
+        n_real = real(k)
+        n_goals, r_pad = len(goals), seed.broker.shape[0]
+        dev = seed.broker.device
+        # This coordinate's lanes as one i32 block: per lane rounds, moves and
+        # violated for every goal, stranded, then broker, disk and leadership.
+        block = torch.zeros((g, 3 * n_goals + 1 + 3 * r_pad), dtype=torch.int32, device=dev)
+        if n_real:
+            idx = torch.as_tensor(np.minimum(k * g + np.arange(g), s_n - 1),
+                                  device=alive_s.device)
+            rounds, moves, violated, stranded, pl = self._run_lane_block(
+                gctx, seed, goals, num_candidates, alive_s[idx], excl_move_s[idx],
+                excl_lead_s[idx], budget, n_real)
+            n_goals = rounds.shape[1]
+            block = block[:, :3 * n_goals + 1 + 3 * r_pad].contiguous()
+            stats = np.concatenate([rounds, moves, violated, stranded[:, None]], axis=1)
+            block[:n_real, :3 * n_goals + 1] = torch.as_tensor(stats, device=dev)
+            block[:n_real, 3 * n_goals + 1:] = torch.cat(
+                [pl.broker, pl.disk, pl.is_leader.to(torch.int32)], dim=1)
+        got = all_gather(block, mesh.scenario_group, n_groups)      # [groups, g, W]
+        lanes = torch.cat([got[j, :real(j)] for j in range(n_groups)])
+        host = lanes[:, :3 * n_goals + 1].cpu().numpy()
+        rounds, moves, violated = (np.ascontiguousarray(host[:, i * n_goals:(i + 1) * n_goals])
+                                   for i in range(3))
+        pl = lanes[:, 3 * n_goals + 1:]
+        placements = Placement(broker=pl[:, :r_pad].contiguous(),
+                               disk=pl[:, r_pad:2 * r_pad].contiguous(),
+                               is_leader=pl[:, 2 * r_pad:].to(torch.bool))
+        return rounds, moves, violated, np.ascontiguousarray(host[:, -1]), placements
 
     def _run_lane_block(self, gctx, seed: Placement, goals, num_candidates,
                         alive_s, excl_move_s, excl_lead_s, budget, n_real):

@@ -126,7 +126,8 @@ def relax_tile(goal: Goal, gctx: GoalContext, placement: Placement,
     channel and the feasible-destination mask of one goal."""
     state = gctx.state
     b = state.num_brokers_padded
-    top_score, cand = _top_candidates(goal.candidate_score(gctx, placement, agg0), k)
+    top_score, cand = _top_candidates(goal.candidate_score(gctx, placement, agg0), k,
+                                      gctx.shard)
     is_cand = top_score > _SCORE_FLOOR
     src0 = placement.broker[cand]
     w = torch.where(is_cand, goal.relax_weights(gctx, placement)[cand], 0.0)

@@ -124,11 +124,21 @@ class Dispatch:
         self.skipped: set = set()
 
 
-def _top_candidates(score: torch.Tensor, k: int):
+def _top_candidates(score: torch.Tensor, k: int, shard=None):
     """(values, indices) of the k best-scoring rows, descending, ties to the
-    lower index (``lax.top_k``'s order)."""
+    lower index (``lax.top_k``'s order); over the replica group when the
+    solve is sharded (``ReplicaShard.top_candidates``, the same rows)."""
+    if shard is not None:
+        return shard.top_candidates(score, k)
     vals, idx = torch.sort(score, descending=True, stable=True)
     return vals[:k], idx[:k]
+
+
+def _agree(gctx: GoalContext, *tensors: torch.Tensor):
+    """``tensors`` as the replica group's first rank holds them in a sharded
+    solve (``ReplicaShard.agree``: each phase's kept moves, a goal's loop
+    condition and its verdicts); unchanged otherwise."""
+    return tensors if gctx.shard is None else gctx.shard.agree(*tensors)
 
 
 @dataclass
@@ -378,7 +388,7 @@ def _replica_phase(goal: Goal, priors: Sequence[Goal], num_candidates: int,
         state = gctx.state
         b = state.num_brokers_padded
         c = num_candidates
-        top_score, cand = _top_candidates(score_fn(gctx, placement, agg), c)
+        top_score, cand = _top_candidates(score_fn(gctx, placement, agg), c, gctx.shard)
         is_cand = top_score > _SCORE_FLOOR
         r2 = cand[:, None]
         pscore = (prune_fn(gctx, placement, agg)
@@ -475,6 +485,7 @@ def _replica_phase(goal: Goal, priors: Sequence[Goal], num_candidates: int,
                 keep = keep & _group_winners(order, src, b)
 
         dst_disk = _pick_dst_disk(gctx, agg, dst)
+        cand, dst, dst_disk, keep = _agree(gctx, cand, dst, dst_disk, keep)
         placement, agg = apply_replica_moves_batch(gctx, placement, agg, cand,
                                                    dst, dst_disk, keep=keep)
         return placement, agg, keep.sum()
@@ -493,7 +504,7 @@ def _leadership_phase(goal: Goal, priors: Sequence[Goal], num_candidates: int):
         state = gctx.state
         c = num_candidates
         top_score, cand = _top_candidates(
-            goal.leadership_candidate_score(gctx, placement, agg), c)
+            goal.leadership_candidate_score(gctx, placement, agg), c, gctx.shard)
         is_cand = top_score > _SCORE_FLOOR
         ok = (is_cand & accept(gctx, placement, agg, cand)
               & goal.leadership_self_ok(gctx, placement, agg, cand))
@@ -548,6 +559,7 @@ def _leadership_phase(goal: Goal, priors: Sequence[Goal], num_candidates: int):
                     & _group_winners(order, gain_b, b)
                     & _group_winners(order, lose_b, b))
 
+        cand, old_safe, keep = _agree(gctx, cand, old_safe, keep)
         # Non-kept rows write nothing: their old_safe values repeat across
         # rows, and a stale write would clobber a kept row's demotion.
         is_leader = set_rows(placement.is_leader, cand, True, keep)
@@ -715,6 +727,8 @@ def swap_body(goal: Goal, priors: Sequence[Goal], gctx: GoalContext,
     keep, r_in_sel, disk_for_out, disk_for_in = swap_select(
         goal, priors, gctx, placement, agg, ridx, out_top, out_c, in_top, in_c,
         jitter_frac)
+    out_c, keep, r_in_sel, disk_for_out, disk_for_in = _agree(
+        gctx, out_c, keep, r_in_sel, disk_for_out, disk_for_in)
     b_out_row = placement.broker[out_c]
     b_in_sel = placement.broker[r_in_sel]
     # A swap is two conflict-free moves, out-moves first; r_in rows may
@@ -731,9 +745,9 @@ def swap_tile(goal: Goal, gctx: GoalContext, placement: Placement,
     """The swap phase's tile: the goal's top-C out- and in-candidates,
     salted by the round index — (out_top, out_c, in_top, in_c)."""
     return (*_top_candidates(goal.swap_out_score(gctx, placement, agg, ridx),
-                             num_candidates),
+                             num_candidates, gctx.shard),
             *_top_candidates(goal.swap_in_score(gctx, placement, agg, ridx),
-                             num_candidates))
+                             num_candidates, gctx.shard))
 
 
 def _swap_phase(goal: Goal, priors: Sequence[Goal], num_candidates: int,
@@ -755,7 +769,7 @@ def _intra_disk_phase(goal: Goal, num_candidates: int):
         d_n = state.num_disks_per_broker
         c = num_candidates
         top_score, cand = _top_candidates(
-            goal.disk_candidate_score(gctx, placement, agg), c)
+            goal.disk_candidate_score(gctx, placement, agg), c, gctx.shard)
         is_cand = top_score > _SCORE_FLOOR
         r2 = cand[:, None]
         d2 = _arange(d_n, cand)[None, :]
@@ -773,6 +787,9 @@ def _intra_disk_phase(goal: Goal, num_candidates: int):
         keep = (feasible
                 & _group_winners(order, b_of * d_n + src_disk, nseg)
                 & _group_winners(order, b_of * d_n + best, nseg))
+        cand, best, keep = _agree(gctx, cand, best, keep)
+        b_of = placement.broker[cand]
+        src_disk = placement.disk[cand]
 
         new_disk = torch.where(keep, best, src_disk)
         # Only disk_load changes; the ROLE-based disk size is what the
@@ -795,6 +812,7 @@ def _direct_phase(goal: Goal):
     aggregate recompute."""
     def phase(gctx: GoalContext, placement: Placement, agg: Aggregates, ridx: int):
         new_pl = goal.direct_apply(gctx, placement, agg)
+        new_pl = Placement(*_agree(gctx, new_pl.broker, new_pl.disk, new_pl.is_leader))
         changed = (new_pl.is_leader != placement.is_leader).sum() // 2
         return new_pl, compute_aggregates(gctx, new_pl), changed
 
@@ -819,7 +837,8 @@ class GoalSolver:
                  # top few hundred headroom brokers in one round.
                  max_dst_candidates: int = 1024,
                  # Rounds between budget checks in a segmented solve.
-                 segment_rounds: int = 8):
+                 segment_rounds: int = 8,
+                 mesh=None):
         self.max_candidates = max_candidates_per_round
         self.segment_rounds = max(1, int(segment_rounds))
         self.max_rounds = max_rounds_per_goal
@@ -836,6 +855,18 @@ class GoalSolver:
         # the input shape signatures each has run at.
         self._families: Dict[tuple, set] = {}
         self._families_lock = threading.Lock()
+        # Optional :class:`~cruise_control_tpu_torch.parallel.mesh.SolverMesh`:
+        # :meth:`shard_inputs` gives each solve this rank's replica shard.
+        self.mesh = mesh
+
+    def shard_inputs(self, gctx: GoalContext, placement: Placement):
+        """(gctx, placement) committed to this solver's mesh: the context
+        carries this rank's replica shard, and the placement stays whole on
+        every rank.  Unchanged without a mesh.  Call once per optimization."""
+        if self.mesh is None:
+            return gctx, placement
+        shard = self.mesh.replica_shard(gctx.state.num_replicas_padded)
+        return dataclasses.replace(gctx, shard=shard), placement
 
     @contextmanager
     def dispatch(self, bucket: str, keys: Sequence[tuple], args, device,
@@ -1050,7 +1081,8 @@ class GoalSolver:
                                  device=dev) if _RECORD_ROUNDS else None)
         while stop is None and rounds < self.max_rounds:
             # The loop condition: the one host sync of each round.
-            v, s, a, st = torch.stack([violated, stranded, applied_last, stall]).tolist()
+            cond, = _agree(gctx, torch.stack([violated, stranded, applied_last, stall]))
+            v, s, a, st = cond.tolist()
             if not ((v > 0 or s > 0) and (rounds == 0 or a > 0)):
                 break
             if use_stall_cutoff and st >= self.stall_limit:
@@ -1087,8 +1119,8 @@ class GoalSolver:
             metric = goal.stats_metric(gctx, pl, ag)
         else:
             metric = metric0
-        vals = torch.stack([x.to(torch.float64) for x in (
-            moves, violated0, violated, stranded, metric0, metric)])
+        vals, = _agree(gctx, torch.stack([x.to(torch.float64) for x in (
+            moves, violated0, violated, stranded, metric0, metric)]))
         curve = None
         if curve_buf is None:
             vals = vals.tolist()
@@ -1121,8 +1153,9 @@ class GoalSolver:
         """Per-goal violated-broker counts (i32[G]) in one host transfer."""
         if not goals:
             return np.zeros(0, dtype=np.int32)
-        return torch.stack([g.violated_brokers(gctx, placement, agg).sum()
-                            for g in goals]).to(torch.int32).cpu().numpy()
+        counts, = _agree(gctx, torch.stack([g.violated_brokers(gctx, placement, agg).sum()
+                                            for g in goals]).to(torch.int32))
+        return counts.cpu().numpy()
 
 
 def check_hard_goal(goal: Goal, info: GoalOptimizationInfo,

@@ -10,9 +10,7 @@ accept fully-qualified Java class names (the registry strips packages).
 
 Every key keeps the JAX package's name, type, default and validator, the
 keys of its compile service and memory ledger included, so one properties
-file parses the same in both packages.  Keys whose consumer the port does not
-have yet are accepted and inert; :data:`INERT_UNTIL` names the ROADMAP
-Queue 1 item that ports each, and their docs say so.
+file parses the same in both packages, and the port reads every key.
 """
 
 from __future__ import annotations
@@ -636,24 +634,6 @@ def _webserver_def() -> ConfigDef:
     return d
 
 
-# Keys (or key prefixes ending in ".") whose consumer is not ported yet, with
-# the ROADMAP Queue 1 item that ports it: 3 = the fuzz service (its campaign
-# keys, and the relaxation tolerance its invariants read), 5 = the compile
-# service and device-memory ledger.  The port's service reads every other key.
-INERT_UNTIL: Dict[str, int] = {
-    "fuzz.": 3, "solver.relaxation.tolerance": 3,
-}
-
-
-def inert_item(name: str) -> Optional[int]:
-    """The ROADMAP Queue 1 item that ports ``name``'s consumer, or None
-    when the port already reads the key."""
-    for key, item in INERT_UNTIL.items():
-        if name == key or (key.endswith(".") and name.startswith(key)):
-            return item
-    return None
-
-
 def _port_def() -> ConfigDef:
     d = (_analyzer_def().merge(_monitor_def())
          .merge(_executor_def()).merge(_anomaly_def())
@@ -661,11 +641,6 @@ def _port_def() -> ConfigDef:
          .merge(_trace_def()).merge(_memory_def())
          .merge(_fuzz_def()).merge(_resilience_def())
          .merge(_solver_def()).merge(_webserver_def()))
-    for key in d.keys().values():
-        item = inert_item(key.name)
-        if item is not None:
-            key.doc = (f"{key.doc} (accepted and inert in the port until ROADMAP "
-                       f"Queue 1 item {item})").lstrip()
     return d
 
 

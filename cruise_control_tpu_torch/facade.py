@@ -511,6 +511,7 @@ class CruiseControl:
                 solver = self.optimizer.solver
                 gctx = build_context(state, placement, meta, self.optimizer.constraint,
                                      OptimizationOptions())
+                gctx, placement = solver.shard_inputs(gctx, placement)
                 agg = solver.aggregates(gctx, placement)
                 priors = []
                 for goal in get_goals_by_priority(self.default_goals):

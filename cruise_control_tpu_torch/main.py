@@ -17,9 +17,8 @@ a restart replays) or ``prometheus``.  ``metrics.transport.listen.port``
 serves the bus over TCP, and ``maintenance.event.transport.*`` feeds
 maintenance plans to the detector.  ``compile.*`` installs the process-wide
 compile service (warmup daemon, lane chunking, the persistent kernel-build
-cache) and ``memory.*`` the memory ledger, before anything solves.  The JAX
-package's fuzz sensors are not called (ROADMAP Queue 1 item 3); the
-``fuzz.`` keys stay accepted and inert (``INERT_UNTIL``).
+cache) and ``memory.*`` the memory ledger, before anything solves.  The
+``Fuzz.*`` counters exist from boot, as in the JAX package.
 
     python -m cruise_control_tpu_torch.main --demo [--device cpu] [--port N]
         [--config cruisecontrol.properties]
@@ -104,6 +103,10 @@ def build_app(config: CruiseControlConfig, port: Optional[int] = None,
     # bounds and profile dir before any request or daemon can create spans.
     configure_obsvc(config)
     res = resilience.configure(config)
+    # Materialize the Fuzz.* counters at boot: fuzz campaigns share this
+    # registry, and a scrape sees them before the first campaign.
+    from cruise_control_tpu_torch.fuzzsvc.runner import fuzz_sensors
+    fuzz_sensors()
     mode = config.get("metric.sampler.mode", "synthetic")
     sampler_cls = str(config.originals.get("metric.sampler.class", "") or "")
     store_cls = str(config.originals.get("sample.store.class", "") or "")

@@ -36,6 +36,10 @@ class ClusterModelStats:
     num_leaders: int
     num_unbalanced_brokers: np.ndarray  # i32[4]
 
+    def cv(self) -> np.ndarray:
+        """Coefficient of variation per resource — scale-free balance measure."""
+        return self.std_util / np.maximum(self.avg_util, 1e-9)
+
     def to_dict(self) -> Dict:
         return {
             "statistics": {

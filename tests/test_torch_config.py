@@ -26,7 +26,6 @@ from cruise_control_tpu_torch.config.config_def import (
     load_properties,
     resolve_env_refs,
 )
-from cruise_control_tpu_torch.config.cruise_control_config import inert_item
 
 # ------------------------------------------ tests/test_config_env.py, ported
 
@@ -130,10 +129,6 @@ def test_key_type_default_and_verdicts_equal_jax(name):
             except err as e:
                 verdicts.append(("error", type(e).__name__))
         assert verdicts[1] == verdicts[0], (name, raw)
-    # Keys the port accepts but does not read yet name the item that ports them.
-    item = inert_item(name)
-    if item is not None:
-        assert f"ROADMAP Queue 1 item {item}" in tk.doc
 
 
 def test_no_class_default_names_the_jax_package():

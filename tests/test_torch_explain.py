@@ -25,6 +25,7 @@ import torch
 
 from cruise_control_tpu.analyzer import relax as jrelax
 from cruise_control_tpu.analyzer.optimizer import GoalOptimizer as JOptimizer
+from cruise_control_tpu.analyzer.solver import GoalSolver as JSolver
 from cruise_control_tpu.obsvc.convergence import convergence as jconvergence
 from cruise_control_tpu.obsvc.execution import execution as jexecution
 from cruise_control_tpu.servlet.schemas import ENDPOINT_SCHEMAS as J_SCHEMAS
@@ -74,13 +75,22 @@ def observatories():
         c.reset()
 
 
-def _jax_solve(cm, goals, relaxed):
-    """The JAX package's solve; its relaxation switch is process-wide, so it
-    is set for this solve only."""
+@pytest.fixture(scope="module")
+def jsolver():
+    """This file's own JAX solver, shared by its tests so that they share its
+    compiles.  The JAX optimizer's default is the process-wide
+    ``default_solver()``, whose round cache would keep this file's relaxed
+    solves' keys for later files on the same worker."""
+    return JSolver()
+
+
+def _jax_solve(cm, goals, relaxed, solver):
+    """The JAX package's solve on ``solver``; its relaxation switch is
+    process-wide, so it is set for this solve only."""
     state, placement, meta = cm.freeze(**PADS)
     jrelax.set_relaxation(relaxed)
     try:
-        return JOptimizer(goal_names=goals).optimizations(state, placement, meta)
+        return JOptimizer(goal_names=goals, solver=solver).optimizations(state, placement, meta)
     finally:
         jrelax.set_relaxation(False)
 
@@ -103,8 +113,8 @@ def _by_partition(result):
 
 @pytest.mark.parametrize("name,goals,relaxed", FIXTURES,
                          ids=[f"{n}-{'relax' if r else 'greedy'}" for n, _, r in FIXTURES])
-def test_provenance_equals_jax_on_deterministic_fixtures(name, goals, relaxed):
-    jres = _jax_solve(getattr(jdet, name)(), goals, relaxed)
+def test_provenance_equals_jax_on_deterministic_fixtures(name, goals, relaxed, jsolver):
+    jres = _jax_solve(getattr(jdet, name)(), goals, relaxed, jsolver)
     tres = _port_solve(getattr(tdet, name)(), goals, relaxed)
     assert tres.proposals
     assert _by_partition(tres) == _by_partition(jres)
@@ -114,14 +124,14 @@ def test_provenance_equals_jax_on_deterministic_fixtures(name, goals, relaxed):
     assert {p.provenance["path"] for p in tres.proposals} == {expected}
 
 
-def test_provenance_fields_equal_jax_on_a_generated_cluster():
+def test_provenance_fields_equal_jax_on_a_generated_cluster(jsolver):
     """Where the placements may differ, the histogram's keys and every
     record's fields and types are the JAX package's.  One goal: the JAX
     side compiles anew for this cluster's shapes."""
     props = dict(GENERATED)
     js, jp, jm = jrc.generate(jrc.ClusterProperties(**props))
     ts, tp, tm = trc.generate(trc.ClusterProperties(**props), device="cpu")
-    jres = JOptimizer(goal_names=GENERATED_GOALS).optimizations(js, jp, jm)
+    jres = JOptimizer(goal_names=GENERATED_GOALS, solver=jsolver).optimizations(js, jp, jm)
     tres = GoalOptimizer(goal_names=GENERATED_GOALS).optimizations(ts, tp, tm)
     jd, td = jres.to_dict(explain=True), tres.to_dict(explain=True)
     assert set(td["provenancePaths"]) == set(jd["provenancePaths"]) <= set(PATHS)
@@ -173,7 +183,7 @@ def test_observatory_on_and_off_same_placement_and_launches(monkeypatch, relaxed
     assert all(p.provenance["path"] in PATHS for p in on.proposals)
 
 
-def test_explain_rendering_is_plain_json_and_passes_both_schema_checkers():
+def test_explain_rendering_is_plain_json_and_passes_both_schema_checkers(jsolver):
     """``?explain=true`` adds the proposals, the path histogram and the
     fingerprint only when asked; every number is a plain Python one (the
     server writes with ``json.dumps`` and no ``default=``), and the body
@@ -192,7 +202,7 @@ def test_explain_rendering_is_plain_json_and_passes_both_schema_checkers():
     assert [e["provenance"] for e in explained["proposals"]] == \
         [p.provenance for p in res.proposals]
     assert "modelFingerprint" in explained
-    jres = _jax_solve(jdet.unbalanced2(), GREEDY, False)
+    jres = _jax_solve(jdet.unbalanced2(), GREEDY, False, jsolver)
     assert set(explained) == set(jres.to_dict(explain=True))
 
 

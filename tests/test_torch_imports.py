@@ -3,6 +3,7 @@ library, never ``jax``, ``flax`` or the JAX package ``cruise_control_tpu``."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -35,6 +36,19 @@ def test_no_forbidden_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", _port_modules() + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_string_names_a_jax_module(path):
+    """A string can start a module without importing it (``python -m ...``,
+    or the module's name as one argument): none names one of the JAX
+    package."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [node.value for node in ast.walk(tree)
+           if isinstance(node, ast.Constant) and isinstance(node.value, str)
+           and re.search(r"(^|-m\s+)cruise_control_tpu\.\w", node.value)]
+    assert not bad, f"{path.relative_to(ROOT)}: {bad}"
+
+
 def test_scan_covers_every_module_of_the_port():
     """Both checks walk the whole package: the builder, the JSON snapshot,
     the fixtures, budgets, relaxation and lanes, the monitor, the resident
@@ -45,7 +59,8 @@ def test_scan_covers_every_module_of_the_port():
     ingestion edge: the reporter's serde, transports and agent, the
     consuming and Prometheus samplers, and the platform layers: the compile
     service's chunking, telemetry, cache, warmup and service, the memory
-    ledger, the solver's device failover and the hermetic guards."""
+    ledger, the solver's device failover and the hermetic guards, and the
+    last two subpackages: the multi-process solves and the fuzzer."""
     names = {".".join(p.relative_to(PORT).with_suffix("").parts) for p in _port_modules()}
     assert {"model.builder", "model.snapshot", "model.state", "model.cpu_model",
             "testing.deterministic", "analyzer.budget", "analyzer.relax",
@@ -74,7 +89,9 @@ def test_scan_covers_every_module_of_the_port():
             "monitor.prometheus", "compilesvc.__init__", "compilesvc.chunking",
             "compilesvc.telemetry", "compilesvc.cache", "compilesvc.warmup",
             "compilesvc.service", "obsvc.memory", "resilience.failover",
-            "utils.hermetic"} <= names
+            "utils.hermetic", "parallel.__init__", "parallel.mesh", "parallel.multihost",
+            "fuzzsvc.__init__", "fuzzsvc.__main__", "fuzzsvc.scenario",
+            "fuzzsvc.invariants", "fuzzsvc.storm", "fuzzsvc.runner"} <= names
 
 
 def test_broker_simulator_starts_without_torch():

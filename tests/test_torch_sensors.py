@@ -16,6 +16,7 @@ import pytest
 from cruise_control_tpu.analyzer import relax as jrelax
 from cruise_control_tpu.analyzer.budget import SolveBudget as JBudget
 from cruise_control_tpu.analyzer.optimizer import GoalOptimizer as JOptimizer
+from cruise_control_tpu.analyzer.solver import GoalSolver as JSolver
 from cruise_control_tpu.common import metrics as jmetrics
 from cruise_control_tpu.testing import deterministic as jdet
 from cruise_control_tpu_torch.analyzer import relax
@@ -91,9 +92,11 @@ def test_relaxed_solve_moves_the_same_counters(jax_relaxation):
     goals = ["ReplicaDistributionGoal"]
 
     def jax_solve():
+        # A solver of its own: the process-wide default_solver() would keep
+        # the relaxed solve's cache keys for later files on this worker.
         jax_relaxation(True)
         try:
-            return JOptimizer(goal_names=goals).optimizations(js, jp, jm)
+            return JOptimizer(goal_names=goals, solver=JSolver()).optimizations(js, jp, jm)
         finally:
             jax_relaxation(False)
 
