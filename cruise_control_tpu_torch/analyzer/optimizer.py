@@ -5,6 +5,14 @@ by priority over one ClusterModel, collecting per-goal stats and the final
 proposal diff; :289-337 serves cached proposals.  Here the loop body drives
 the batched ``GoalSolver``, a result is cached per model generation, and
 what-if studies (remove or add brokers) run as lanes, one per scenario.
+
+Spans (the tracer's, named as the JAX package names them where it has them):
+``optimize`` holds a ``goal.<Goal>`` per goal and a ``polish.<Goal>`` per
+polish re-solve; ``batch_optimize`` holds ``lanes.setup``, ``lanes.plan``, a
+``lanes.block`` per planned block (``lanes.group`` on a mesh) with its
+``lanes.context``, ``solve.relax`` and a ``goal.<Goal>`` per real lane and
+goal, then ``lanes.result``.  Each ``goal.*`` holds the solver's
+``solve.enter``, ``solve.round`` and ``solve.exit``.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from cruise_control_tpu_torch.obsvc.execution import execution as _execution
 from cruise_control_tpu_torch.obsvc.execution import path_histogram
 from cruise_control_tpu_torch.obsvc.fidelity import fidelity as _fidelity
 from cruise_control_tpu_torch.obsvc.memory import SUBSYS_LANES, measure_bytes, memory_ledger
+from cruise_control_tpu_torch.obsvc.tracer import tracer as _tracer
 from cruise_control_tpu_torch.parallel.mesh import SCENARIO_AXIS, all_gather
 
 LOG = logging.getLogger(__name__)
@@ -339,6 +348,13 @@ class GoalOptimizer:
         the run anytime: it is checked at every goal boundary (and, when
         segmented, at segment boundaries inside each goal); on expiry or
         cancel the result is returned as it stands with ``partial=True``."""
+        n = len(goals) if goals is not None else len(self.goal_names)
+        with _tracer().span("optimize", num_goals=n, generation=model_generation):
+            return self._optimizations(state, placement, meta, options, goals,
+                                       model_generation, budget)
+
+    def _optimizations(self, state, placement, meta, options, goals, model_generation,
+                       budget) -> OptimizerResult:
         options = options or OptimizationOptions()
         cache_key = None
         if model_generation is not None:
@@ -354,6 +370,8 @@ class GoalOptimizer:
 
         goals = list(goals) if goals is not None else get_goals_by_priority(self.goal_names)
         t0 = time.monotonic()
+        tr = _tracer()
+        bucket = f"R{state.num_replicas_padded}"
         reg = registry()
         proposal_timer = reg.timer("GoalOptimizer.proposal-computation-timer")
         self._check_budget(budget)
@@ -409,12 +427,22 @@ class GoalOptimizer:
                             preempted=True,
                             preempt_reason=preempt_reason))
                     break
-            if self._use_relax(goal, budget):
-                placement, agg, info = relax.optimize_goal_relaxed(
-                    self.solver, goal, priors, gctx, placement, agg, self.relaxation)
-            else:
-                placement, agg, info = self.solver.optimize_goal(
-                    goal, priors, gctx, placement, agg, budget=budget)
+            with tr.span(f"goal.{goal.name}", bucket=bucket) as gsp:
+                if self._use_relax(goal, budget):
+                    placement, agg, info = relax.optimize_goal_relaxed(
+                        self.solver, goal, priors, gctx, placement, agg, self.relaxation)
+                else:
+                    placement, agg, info = self.solver.optimize_goal(
+                        goal, priors, gctx, placement, agg, budget=budget)
+                gsp.set("rounds", info.rounds)
+                gsp.set("moves", info.moves_applied)
+                if info.relaxed:
+                    gsp.set("relaxed", True)
+                    gsp.set("relax_ms", round(info.relax_ms, 3))
+                    if info.relax_fallback:
+                        gsp.set("relax_fallback", True)
+                if info.preempted:
+                    gsp.set("preempted", info.preempt_reason)
             infos.append(info)
             rounded, info.rounded = info.rounded, None
             if prov_map is not None:
@@ -482,8 +510,11 @@ class GoalOptimizer:
             if not revio:
                 break
             for goal in revio:
-                placement, agg, pinfo = self.solver.optimize_goal(
-                    goal, [p for p in goals if p is not goal], gctx, placement, agg)
+                with tr.span(f"polish.{goal.name}", bucket=bucket) as psp:
+                    placement, agg, pinfo = self.solver.optimize_goal(
+                        goal, [p for p in goals if p is not goal], gctx, placement, agg)
+                    psp.set("rounds", pinfo.rounds)
+                    psp.set("moves", pinfo.moves_applied)
                 if prov_map is not None:
                     # Polish re-solves are greedy repairs of a soft goal's
                     # band; their moves overwrite earlier attribution.
@@ -621,24 +652,34 @@ class GoalOptimizer:
         onto narrower blocks or refuse the dispatch (``memory_refused``).  On
         a mesh the lanes split over its scenario groups instead
         (:meth:`_run_scenario_groups`)."""
+        with _tracer().span("batch_optimize", lanes=len(scenario_sets),
+                            warm_start=warm_start is not None):
+            return self._batch_scenarios_impl(state, placement, meta, scenario_sets, revive,
+                                              options, goals, num_candidates, warm_start,
+                                              budget)
+
+    def _batch_scenarios_impl(self, state, placement, meta, scenario_sets, revive,
+                              options, goals, num_candidates, warm_start,
+                              budget) -> BatchScenarioResult:
+        tr = _tracer()
         options = options or OptimizationOptions()
         goals = (list(goals) if goals is not None
                  else get_goals_by_priority(self.goal_names))
-        # The context is built from the BASE placement either way: it only
-        # feeds placement-independent statics; every lane recomputes its
-        # aggregates from its own (possibly warm-started) placement.
-        gctx = build_context(state, placement, meta, self.constraint, options)
-        alive_s, excl_move_s, excl_lead_s = _scenario_masks(gctx, state, meta, scenario_sets,
-                                                            revive)
+        with tr.span("lanes.setup"):
+            # The context is built from the BASE placement either way: it
+            # only feeds placement-independent statics; every lane recomputes
+            # its aggregates from its own (possibly warm-started) placement.
+            gctx = build_context(state, placement, meta, self.constraint, options)
+            alive_s, excl_move_s, excl_lead_s = _scenario_masks(gctx, state, meta,
+                                                                scenario_sets, revive)
         seed = placement if warm_start is None else warm_start
         s_n = len(scenario_sets)
         sets = [list(map(int, ids)) for ids in scenario_sets]
         if self.solver.mesh is not None:
             self._check_budget(budget)
             gctx, seed = self.solver.shard_inputs(gctx, seed)
-            rounds, moves, violated, stranded, placements = self._run_scenario_groups(
-                gctx, seed, goals, num_candidates, alive_s, excl_move_s, excl_lead_s,
-                budget)
+            got = self._run_scenario_groups(gctx, seed, goals, num_candidates, alive_s,
+                                            excl_move_s, excl_lead_s, budget)
         else:
             got = self._run_planned(gctx, state, seed, goals, num_candidates, alive_s,
                                     excl_move_s, excl_lead_s, budget)
@@ -653,46 +694,52 @@ class GoalOptimizer:
                         broker=seed.broker.expand(s_n, -1), disk=seed.disk.expand(s_n, -1),
                         is_leader=seed.is_leader.expand(s_n, -1)),
                     preempted=True, memory_refused=True)
-            rounds, moves, violated, stranded, placements = got
-        preempted = rounds.shape[1] < len(goals)
-        if preempted:
-            registry().counter(PREEMPTIONS_SENSOR).inc()
-            registry().counter(PARTIAL_SOLVES_SENSOR).inc()
-            if budget is not None and budget.cancelled():
-                registry().counter(CANCELLATIONS_SENSOR).inc()
-        # Per-lane early-exit rounds: the [S, G] rounds matrix every batch
-        # returns is the per-lane convergence story the recorder keeps.
-        _convergence().record_batch([g.name for g in goals[:rounds.shape[1]]], rounds,
-                                    warm_start=warm_start is not None)
-        return BatchScenarioResult(
-            scenario_sets=sets,
-            goal_names=[g.name for g in goals[:rounds.shape[1]]],
-            violated_after=violated,
-            moves=moves,
-            rounds=rounds,
-            stranded_after=stranded,
-            final_placements=placements,
-            preempted=preempted,
-        )
+        with tr.span("lanes.result"):
+            rounds, moves, violated, stranded, placements = (
+                got if self.solver.mesh is not None else _join_blocks(*got))
+            preempted = rounds.shape[1] < len(goals)
+            if preempted:
+                registry().counter(PREEMPTIONS_SENSOR).inc()
+                registry().counter(PARTIAL_SOLVES_SENSOR).inc()
+                if budget is not None and budget.cancelled():
+                    registry().counter(CANCELLATIONS_SENSOR).inc()
+            # Per-lane early-exit rounds: the [S, G] rounds matrix every batch
+            # returns is the per-lane convergence story the recorder keeps.
+            _convergence().record_batch([g.name for g in goals[:rounds.shape[1]]], rounds,
+                                        warm_start=warm_start is not None)
+            return BatchScenarioResult(
+                scenario_sets=sets,
+                goal_names=[g.name for g in goals[:rounds.shape[1]]],
+                violated_after=violated,
+                moves=moves,
+                rounds=rounds,
+                stranded_after=stranded,
+                final_placements=placements,
+                preempted=preempted,
+            )
 
     def _run_planned(self, gctx, state, seed, goals, num_candidates, alive_s,
                      excl_move_s, excl_lead_s, budget):
         """An unsharded batch through the compile service's lane-chunk plan and
-        the memory ledger's headroom guard: (rounds, moves, violated,
-        stranded, placements), or None when the guard refuses it."""
+        the memory ledger's headroom guard: (the blocks' outputs, the goal
+        prefix every block solved) for :func:`_join_blocks`, or None when the
+        guard refuses it."""
+        tr = _tracer()
         s_n = alive_s.shape[0]
-        svc = compile_service()
-        lane_key = svc.lane_key([g.name for g in goals], state.num_replicas_padded,
-                                state.num_brokers_padded, num_candidates)
-        plan = svc.plan_lanes(s_n, lane_key)
-        # Headroom guard: the cost ledger projects peak bytes for the plan's
-        # widest lane block; a projection over the headroom fraction of the
-        # device budget re-chunks onto narrower widths, and when nothing fits
-        # the dispatch is refused outright.
-        c = min(num_candidates, state.num_replicas_padded)
-        plan, refused = memory_ledger().guard_lane_plan(
-            plan, s_n, f"R{state.num_replicas_padded}-C{c}", svc.policy.lane_ladder,
-            compiled_widths=svc.compiled_lane_widths(lane_key))
+        with tr.span("lanes.plan") as sp:
+            svc = compile_service()
+            lane_key = svc.lane_key([g.name for g in goals], state.num_replicas_padded,
+                                    state.num_brokers_padded, num_candidates)
+            plan = svc.plan_lanes(s_n, lane_key)
+            # Headroom guard: the cost ledger projects peak bytes for the
+            # plan's widest lane block; a projection over the headroom
+            # fraction of the device budget re-chunks onto narrower widths,
+            # and when nothing fits the dispatch is refused outright.
+            c = min(num_candidates, state.num_replicas_padded)
+            plan, refused = memory_ledger().guard_lane_plan(
+                plan, s_n, f"R{state.num_replicas_padded}-C{c}", svc.policy.lane_ladder,
+                compiled_widths=svc.compiled_lane_widths(lane_key))
+            sp.set("blocks", len(plan))
         if refused:
             return None
         blocks = []
@@ -701,24 +748,20 @@ class GoalOptimizer:
         # column-aligned (their lanes still need placements).
         goal_limit = len(goals)
         for chunk in plan:
-            # The block's lane masks span its planned width (padding rows
-            # repeat the last real lane), which keys its dispatches and cost
-            # rows as the JAX package's vmapped width does; only its real
-            # lanes are solved.
-            idx = torch.as_tensor(np.minimum(chunk.start + np.arange(chunk.size), s_n - 1),
-                                  device=alive_s.device)
-            out = self._run_lane_block(gctx, seed, goals[:goal_limit], num_candidates,
-                                       alive_s[idx], excl_move_s[idx], excl_lead_s[idx],
-                                       budget, chunk.n_real)
-            goal_limit = min(goal_limit, out[0].shape[1])
-            svc.note_lanes_compiled(lane_key, chunk.size)
-            blocks.append(out)
-        rounds, moves, violated = (
-            np.concatenate([b[i][:, :goal_limit] for b in blocks], axis=0) for i in range(3))
-        stranded = np.concatenate([b[3] for b in blocks], axis=0)
-        placements = Placement(**{f: torch.cat([getattr(b[4], f) for b in blocks])
-                                  for f in ("broker", "disk", "is_leader")})
-        return rounds, moves, violated, stranded, placements
+            with tr.span("lanes.block", width=chunk.size, real=chunk.n_real):
+                # The block's lane masks span its planned width (padding rows
+                # repeat the last real lane), which keys its dispatches and
+                # cost rows as the JAX package's vmapped width does; only its
+                # real lanes are solved.
+                idx = torch.as_tensor(np.minimum(chunk.start + np.arange(chunk.size), s_n - 1),
+                                      device=alive_s.device)
+                out = self._run_lane_block(gctx, seed, goals[:goal_limit], num_candidates,
+                                           alive_s[idx], excl_move_s[idx], excl_lead_s[idx],
+                                           budget, chunk.n_real)
+                goal_limit = min(goal_limit, out[0].shape[1])
+                svc.note_lanes_compiled(lane_key, chunk.size)
+                blocks.append(out)
+        return blocks, goal_limit
 
     def _run_scenario_groups(self, gctx, seed, goals, num_candidates, alive_s,
                              excl_move_s, excl_lead_s, budget):
@@ -729,7 +772,8 @@ class GoalOptimizer:
         every rank every lane (where the JAX package gathers its global
         arrays with ``_host_local_placement``).  As in the JAX package, mesh runs are never
         chunked by the lane planner, and the headroom guard judges unsharded
-        runs only.  Returns what :meth:`_run_planned` does."""
+        runs only.  Returns (rounds, moves, violated, stranded,
+        placements), as :func:`_join_blocks` does of the planned blocks."""
         mesh = self.solver.mesh
         s_n = alive_s.shape[0]
         n_groups = mesh.shape[SCENARIO_AXIS]
@@ -745,19 +789,20 @@ class GoalOptimizer:
         # This coordinate's lanes as one i32 block: per lane rounds, moves and
         # violated for every goal, stranded, then broker, disk and leadership.
         block = torch.zeros((g, 3 * n_goals + 1 + 3 * r_pad), dtype=torch.int32, device=dev)
-        if n_real:
-            idx = torch.as_tensor(np.minimum(k * g + np.arange(g), s_n - 1),
-                                  device=alive_s.device)
-            rounds, moves, violated, stranded, pl = self._run_lane_block(
-                gctx, seed, goals, num_candidates, alive_s[idx], excl_move_s[idx],
-                excl_lead_s[idx], budget, n_real)
-            n_goals = rounds.shape[1]
-            block = block[:, :3 * n_goals + 1 + 3 * r_pad].contiguous()
-            stats = np.concatenate([rounds, moves, violated, stranded[:, None]], axis=1)
-            block[:n_real, :3 * n_goals + 1] = torch.as_tensor(stats, device=dev)
-            block[:n_real, 3 * n_goals + 1:] = torch.cat(
-                [pl.broker, pl.disk, pl.is_leader.to(torch.int32)], dim=1)
-        got = all_gather(block, mesh.scenario_group, n_groups)      # [groups, g, W]
+        with _tracer().span("lanes.group", group=k, width=g, real=n_real):
+            if n_real:
+                idx = torch.as_tensor(np.minimum(k * g + np.arange(g), s_n - 1),
+                                      device=alive_s.device)
+                rounds, moves, violated, stranded, pl = self._run_lane_block(
+                    gctx, seed, goals, num_candidates, alive_s[idx], excl_move_s[idx],
+                    excl_lead_s[idx], budget, n_real)
+                n_goals = rounds.shape[1]
+                block = block[:, :3 * n_goals + 1 + 3 * r_pad].contiguous()
+                stats = np.concatenate([rounds, moves, violated, stranded[:, None]], axis=1)
+                block[:n_real, :3 * n_goals + 1] = torch.as_tensor(stats, device=dev)
+                block[:n_real, 3 * n_goals + 1:] = torch.cat(
+                    [pl.broker, pl.disk, pl.is_leader.to(torch.int32)], dim=1)
+            got = all_gather(block, mesh.scenario_group, n_groups)      # [groups, g, W]
         lanes = torch.cat([got[j, :real(j)] for j in range(n_groups)])
         host = lanes[:, :3 * n_goals + 1].cpu().numpy()
         rounds, moves, violated = (np.ascontiguousarray(host[:, i * n_goals:(i + 1) * n_goals])
@@ -803,12 +848,14 @@ class GoalOptimizer:
         padding, whose seed placements stand in the dispatch's outputs.
         Returns (rounds, moves, violated after: i32[n_real, G]; stranded
         after the last goal: i32[n_real]; the stacked final placements)."""
+        tr = _tracer()
         s_n = alive_s.shape[0]
         r_pad = gctx.state.num_replicas_padded
         c = min(num_candidates, r_pad)
         dev = gctx.state.device
-        lanes = [scenario_context(gctx, alive_s[s], excl_move_s[s], excl_lead_s[s])
-                 for s in range(n_real)]
+        with tr.span("lanes.context"):
+            lanes = [scenario_context(gctx, alive_s[s], excl_move_s[s], excl_lead_s[s])
+                     for s in range(n_real)]
         placements = [seed] * s_n
         stats = []                       # per goal: [n_real] rows of (rounds, moves, violated)
         stranded = np.zeros(n_real, dtype=np.int32)
@@ -824,10 +871,11 @@ class GoalOptimizer:
                 # greedy solve below is the lane's repair pass.
                 k = relax.relax_width(self.relaxation, r_pad, num_candidates)
                 key = ("relax", "frac-batch", goal.name, prior_keys, k, self.relaxation.waves)
-                with self.solver.dispatch(
-                        f"R{r_pad}-C{k}-X", [key],
-                        (gctx, alive_s, excl_move_s, excl_lead_s, placements), dev,
-                        label=f"R{r_pad}-C{k}-X-L{s_n}") as d:
+                with (tr.span("solve.relax", goal=goal.name, lanes=s_n, candidates=k),
+                      self.solver.dispatch(
+                          f"R{r_pad}-C{k}-X", [key],
+                          (gctx, alive_s, excl_move_s, excl_lead_s, placements), dev,
+                          label=f"R{r_pad}-C{k}-X-L{s_n}") as d):
                     placements = [
                         relax.relax_round(goal, priors, lctx, pl, compute_aggregates(lctx, pl),
                                           k, self.relaxation.waves,
@@ -840,9 +888,13 @@ class GoalOptimizer:
                     (gctx, alive_s, excl_move_s, excl_lead_s, placements), dev,
                     label=f"R{r_pad}-C{c}-L{s_n}") as d:
                 for s, lctx in enumerate(lanes):
-                    pl, _, info = self.solver.optimize_goal(
-                        goal, priors, lctx, placements[s],
-                        compute_aggregates(lctx, placements[s]), width=c)
+                    # The solve computes the lane's entry aggregates from its
+                    # own placement, inside the goal's span.
+                    with tr.span(f"goal.{goal.name}", lane=s) as gsp:
+                        pl, _, info = self.solver.optimize_goal(
+                            goal, priors, lctx, placements[s], width=c)
+                        gsp.set("rounds", info.rounds)
+                        gsp.set("moves", info.moves_applied)
                     placements[s] = pl
                     column.append((info.rounds, info.moves_applied,
                                    info.violated_brokers_after))
@@ -857,3 +909,15 @@ class GoalOptimizer:
                             disk=torch.stack([p.disk for p in solved]),
                             is_leader=torch.stack([p.is_leader for p in solved]))
         return rounds, moves, violated, stranded, stacked
+
+
+def _join_blocks(blocks, goal_limit: int):
+    """The planned blocks' outputs as one batch's (rounds, moves, violated,
+    stranded, placements), the stats cut to the goal prefix every block
+    solved."""
+    rounds, moves, violated = (
+        np.concatenate([b[i][:, :goal_limit] for b in blocks], axis=0) for i in range(3))
+    stranded = np.concatenate([b[3] for b in blocks], axis=0)
+    placements = Placement(**{f: torch.cat([getattr(b[4], f) for b in blocks])
+                              for f in ("broker", "disk", "is_leader")})
+    return rounds, moves, violated, stranded, placements

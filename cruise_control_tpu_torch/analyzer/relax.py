@@ -60,6 +60,7 @@ from cruise_control_tpu_torch.analyzer.solver import (
 )
 from cruise_control_tpu_torch.model.ops import segment_sum
 from cruise_control_tpu_torch.model.state import Placement
+from cruise_control_tpu_torch.obsvc.tracer import tracer
 
 # Mirror-descent step in logit space per (normalized) iteration: the
 # gradient is normalized to unit max, so total logit travel is bounded by
@@ -248,14 +249,18 @@ def optimize_goal_relaxed(solver: GoalSolver, goal: Goal, priors: Sequence[Goal]
     if agg is None:
         agg = solver.aggregates(gctx, placement)
     t0 = time.monotonic()
-    rounded_pl, _, frac_moves, violated0, metric0 = relax_dispatch(
-        solver, goal, priors, gctx, placement, agg, config)
-    # Fresh aggregates clear the waves' incremental scatter drift before the
-    # repair reads its "before" residuals from them.
-    rounded_agg = compute_aggregates(gctx, rounded_pl)
-    frac_moves, violated0, metric0 = torch.stack([
-        frac_moves.to(torch.float64), violated0.to(torch.float64),
-        metric0.to(torch.float64)]).tolist()
+    with tracer().span("solve.relax", goal=goal.name,
+                       candidates=relax_width(config, gctx.state.num_replicas_padded),
+                       waves=config.waves, iterations=config.iterations) as sp:
+        rounded_pl, _, frac_moves, violated0, metric0 = relax_dispatch(
+            solver, goal, priors, gctx, placement, agg, config)
+        # Fresh aggregates clear the waves' incremental scatter drift before
+        # the repair reads its "before" residuals from them.
+        rounded_agg = compute_aggregates(gctx, rounded_pl)
+        frac_moves, violated0, metric0 = torch.stack([
+            frac_moves.to(torch.float64), violated0.to(torch.float64),
+            metric0.to(torch.float64)]).tolist()
+        sp.set("frac_moves", int(frac_moves))
     relax_ms = (time.monotonic() - t0) * 1000.0
     registry().counter(ATTEMPTS_SENSOR).inc()
 

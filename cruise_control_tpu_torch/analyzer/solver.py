@@ -29,9 +29,12 @@ headroom means no subset of kept moves can invalidate another kept move's
 checks.  Anything skipped is picked up next round against fresh aggregates.
 
 The per-goal convergence loop runs on the host and syncs once per round, on
-the loop condition.  With round recording on (``trace.solver.rounds``), each
-round writes one ``ROUND_STATS_COLS`` row into a preallocated device buffer,
-copied to the host with the goal's final numbers.  A phase with no candidate
+the loop condition.  Its spans (``solve.enter``, one ``solve.round`` a round
+with a ``phase.<name>`` per phase and ``round.stats``, ``solve.exit``)
+partition it, and add no sync of their own.  With round recording on
+(``trace.solver.rounds``), each round writes one ``ROUND_STATS_COLS`` row
+into a preallocated device buffer, copied to the host with the goal's final
+numbers.  A phase with no candidate
 runs its tile anyway, fully masked (nothing is kept), instead of syncing to
 skip it.  Top-k is exact and
 breaks ties by index, as ``lax.top_k`` does.
@@ -46,7 +49,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -74,6 +77,7 @@ from cruise_control_tpu_torch.compilesvc.telemetry import telemetry as _compile_
 from cruise_control_tpu_torch.model.state import Placement
 from cruise_control_tpu_torch.obsvc.convergence import ROUND_STATS_COLS
 from cruise_control_tpu_torch.obsvc.memory import memory_ledger as _memory_ledger
+from cruise_control_tpu_torch.obsvc.tracer import tracer as _tracer
 
 _SCORE_FLOOR = -1e29  # candidate scores below this are "not a candidate"
 _INF_COST = 3.4e38
@@ -943,12 +947,12 @@ class GoalSolver:
         return min(self.max_swap_candidates, self._width(goal, num_replicas_padded))
 
     def _phases(self, goal: Goal, priors: Tuple[Goal, ...], c: int):
-        """Phase functions in execution order."""
+        """(span name, phase function) pairs in execution order."""
         phases = []
         if goal.is_direct:
-            phases.append(_direct_phase(goal))
+            phases.append(("phase.direct", _direct_phase(goal)))
         if goal.uses_leadership_moves:
-            phases.append(_leadership_phase(goal, priors, c))
+            phases.append(("phase.leadership", _leadership_phase(goal, priors, c)))
         if goal.uses_replica_moves:
             # Priors-aware receiver ranking where the goal offers it (an
             # ORDER heuristic: acceptance stays exact either way).
@@ -956,38 +960,39 @@ class GoalSolver:
             if hasattr(goal, "dst_prune_score_vs"):
                 def prune(gctx, pl, ag, _f=goal.dst_prune_score_vs):
                     return _f(gctx, pl, ag, priors)
-            phases.append(_replica_phase(goal, priors, c,
-                                         goal.candidate_score, goal.self_ok,
-                                         jitter_frac=self.dst_jitter_frac,
-                                         prune_fn=prune,
-                                         max_dst=self.max_dst_candidates))
+            phases.append(("phase.replica", _replica_phase(
+                goal, priors, c, goal.candidate_score, goal.self_ok,
+                jitter_frac=self.dst_jitter_frac, prune_fn=prune,
+                max_dst=self.max_dst_candidates)))
         if goal.has_pull_phase:
-            phases.append(_replica_phase(goal, priors, c,
-                                         goal.pull_candidate_score, goal.self_ok,
-                                         dst_mask_fn=goal.pull_dst_mask,
-                                         jitter_frac=self.dst_jitter_frac,
-                                         prune_fn=goal.pull_dst_prune_score,
-                                         max_dst=self.max_dst_candidates))
+            phases.append(("phase.pull", _replica_phase(
+                goal, priors, c, goal.pull_candidate_score, goal.self_ok,
+                dst_mask_fn=goal.pull_dst_mask, jitter_frac=self.dst_jitter_frac,
+                prune_fn=goal.pull_dst_prune_score, max_dst=self.max_dst_candidates)))
         if goal.has_swap_phase:
-            phases.append(_swap_phase(goal, priors, min(self.max_swap_candidates, c),
-                                      jitter_frac=self.dst_jitter_frac))
+            phases.append(("phase.swap", _swap_phase(
+                goal, priors, min(self.max_swap_candidates, c),
+                jitter_frac=self.dst_jitter_frac)))
         if goal.intra_disk:
-            phases.append(_intra_disk_phase(goal, c))
+            phases.append(("phase.intra_disk", _intra_disk_phase(goal, c)))
         return phases
 
     def _phases_runner(self, goal: Goal, priors: Tuple[Goal, ...], c: int):
         """One round given the caller's aggregates; returns the updated
         aggregates so the loop can carry them across rounds."""
         phases = self._phases(goal, priors, c)
+        tr = _tracer()
 
         def run(gctx: GoalContext, placement: Placement, agg: Aggregates, ridx: int):
             applied = torch.zeros((), dtype=torch.int64, device=gctx.state.device)
-            for phase in phases:
-                placement, agg, n = phase(gctx, placement, agg, ridx)
-                applied = applied + n
-            violated = goal.violated_brokers(gctx, placement, agg).sum()
-            stranded = currently_offline(gctx, placement).sum()
-            metric = goal.stats_metric(gctx, placement, agg)
+            for name, phase in phases:
+                with tr.span(name):
+                    placement, agg, n = phase(gctx, placement, agg, ridx)
+                    applied = applied + n
+            with tr.span("round.stats"):
+                violated = goal.violated_brokers(gctx, placement, agg).sum()
+                stranded = currently_offline(gctx, placement).sum()
+                metric = goal.stats_metric(gctx, placement, agg)
             return placement, agg, applied, violated, stranded, metric
 
         return run
@@ -1010,8 +1015,10 @@ class GoalSolver:
         ``while !finished`` loop, GoalOptimizer.java:437-462).
 
         ``agg`` lets the caller thread one goal's exact final aggregates into
-        the next goal's solve; the returned aggregates are a fresh full
-        recompute, or the entry aggregates when no round ran.
+        the next goal's solve (without it the solve computes them, inside
+        its ``solve.enter`` at a given ``width``); the returned aggregates
+        are a fresh full recompute, or the entry aggregates when no round
+        ran.
 
         ``budget`` (a :class:`~cruise_control_tpu_torch.analyzer.budget.SolveBudget`
         with ``segmented`` set) is checked before the first round and at
@@ -1029,14 +1036,14 @@ class GoalSolver:
         under a segmented budget (step unrun when the budget stops the
         solve before its first round); round recording adds ``rounds`` to
         the key and ``-T`` to the bucket."""
-        if agg is None:
-            agg = self.aggregates(gctx, placement)
         segmented = budget is not None and budget.segmented
         # The JAX package checks a segmented budget once before the first
         # segment, then after each segment that left the loop unfinished.
         stop = budget.stop_reason() if segmented else None
         if width is not None:
             return self._converge(goal, priors, gctx, placement, agg, budget, width, stop)
+        if agg is None:
+            agg = self.aggregates(gctx, placement)
         c = self._width(goal, gctx.state.num_replicas_padded)
         prior_keys = tuple(g.name for g in priors)
         bucket = f"R{gctx.state.num_replicas_padded}-C{c}"
@@ -1054,96 +1061,133 @@ class GoalSolver:
             d.outputs = out[:2]
         return out
 
+    def _go_on(self, gctx: GoalContext, rounds: int, use_stall_cutoff: bool, budget,
+               violated, stranded, applied_last, stall) -> Tuple[bool, Optional[str]]:
+        """The loop condition before round ``rounds``: (run it, the
+        segmented budget's stop reason).  Its read of the device values is
+        the one host sync of each round."""
+        if rounds >= self.max_rounds:
+            return False, None
+        cond, = _agree(gctx, torch.stack([violated, stranded, applied_last, stall]))
+        v, s, a, st = cond.tolist()
+        if not ((v > 0 or s > 0) and (rounds == 0 or a > 0)):
+            return False, None
+        if use_stall_cutoff and st >= self.stall_limit:
+            return False, None
+        if (budget is not None and budget.segmented and rounds > 0
+                and rounds % self.segment_rounds == 0):
+            stop = budget.stop_reason()
+            return stop is None, stop
+        return True, None
+
     def _converge(self, goal: Goal, priors: Sequence[Goal], gctx: GoalContext,
-                  placement: Placement, agg: Aggregates, budget, c: int,
+                  placement: Placement, agg: Optional[Aggregates], budget, c: int,
                   stop: Optional[str]) -> Tuple[Placement, Aggregates, GoalOptimizationInfo]:
         """:meth:`optimize_goal`'s loop at candidate width ``c``; ``stop`` is
-        the segmented budget's verdict before the first round."""
-        runner = self._phases_runner(goal, tuple(priors), c)
-        dev = gctx.state.device
-        violated0 = goal.violated_brokers(gctx, placement, agg).sum()
-        stranded0 = currently_offline(gctx, placement).sum()
-        metric0 = goal.stats_metric(gctx, placement, agg)
+        the segmented budget's verdict before the first round.
 
-        pl, ag = placement, agg
-        rounds = 0
-        zero = torch.zeros((), dtype=torch.int64, device=dev)
-        applied_last, moves, stall = zero + 1, zero, zero
-        violated, stranded = violated0, stranded0
-        best_work, best_metric = violated0 + stranded0, metric0
-        # Soft goals only: a hard goal must exhaust its round budget before
-        # the hard-goal check declares failure.
-        use_stall_cutoff = not goal.is_hard
-        segmented = budget is not None and budget.segmented
-        # Round recording: one row a round into a preallocated device buffer,
-        # in the ROUND_COL_* order; no sync of its own.
-        curve_buf = (torch.zeros((self.max_rounds, ROUND_STATS_COLS), dtype=torch.float32,
-                                 device=dev) if _RECORD_ROUNDS else None)
-        while stop is None and rounds < self.max_rounds:
-            # The loop condition: the one host sync of each round.
-            cond, = _agree(gctx, torch.stack([violated, stranded, applied_last, stall]))
-            v, s, a, st = cond.tolist()
-            if not ((v > 0 or s > 0) and (rounds == 0 or a > 0)):
-                break
-            if use_stall_cutoff and st >= self.stall_limit:
-                break
-            if segmented and rounds > 0 and rounds % self.segment_rounds == 0:
-                stop = budget.stop_reason()
-                if stop is not None:
-                    break
-            resync = rounds > 0 and rounds % self.AGG_RESYNC_ROUNDS == 0
-            if resync:
+        Its spans partition it: ``solve.enter`` (the entry aggregates where
+        ``agg`` is None, the entry residuals and the loop condition before
+        the first round), one ``solve.round`` a round
+        (its phases, ``round.stats`` and the loop condition after it; under
+        a segmented budget, grouped ``segment_rounds`` at a time into
+        ``solve.segment`` spans) and ``solve.exit`` (the fresh recompute
+        and the one read of the goal's numbers)."""
+        tr = _tracer()
+        with tr.span("solve.enter"):
+            # Soft goals only: a hard goal must exhaust its round budget
+            # before the hard-goal check declares failure.
+            use_stall_cutoff = not goal.is_hard
+            segmented = budget is not None and budget.segmented
+            runner = self._phases_runner(goal, tuple(priors), c)
+            dev = gctx.state.device
+            if agg is None:
+                agg = compute_aggregates(gctx, placement)
+            violated0 = goal.violated_brokers(gctx, placement, agg).sum()
+            stranded0 = currently_offline(gctx, placement).sum()
+            metric0 = goal.stats_metric(gctx, placement, agg)
+
+            pl, ag = placement, agg
+            rounds = 0
+            zero = torch.zeros((), dtype=torch.int64, device=dev)
+            applied_last, moves, stall = zero + 1, zero, zero
+            violated, stranded = violated0, stranded0
+            best_work, best_metric = violated0 + stranded0, metric0
+            # Round recording: one row a round into a preallocated device
+            # buffer, in the ROUND_COL_* order; no sync of its own.
+            curve_buf = (torch.zeros((self.max_rounds, ROUND_STATS_COLS), dtype=torch.float32,
+                                     device=dev) if _RECORD_ROUNDS else None)
+            go_on = False
+            if stop is None:
+                go_on, stop = self._go_on(gctx, rounds, use_stall_cutoff, budget, violated,
+                                          stranded, applied_last, stall)
+        segment = 0
+        while go_on:
+            seg_end = min(rounds + self.segment_rounds, self.max_rounds)
+            with (tr.span("solve.segment", goal=goal.name, segment=segment, seg_end=seg_end)
+                  if segmented else nullcontext()) as seg_span:
+                while go_on and (not segmented or rounds < seg_end):
+                    with tr.span("solve.round", round=rounds):
+                        resync = rounds > 0 and rounds % self.AGG_RESYNC_ROUNDS == 0
+                        if resync:
+                            ag = compute_aggregates(gctx, pl)
+                        pl, ag, applied, violated, stranded, metric = runner(gctx, pl, ag,
+                                                                             rounds)
+                        work_now = violated + stranded
+                        improved = ((work_now < best_work)
+                                    | (metric < best_metric - 1e-4 * best_metric.abs() - 1e-12))
+                        stall = torch.where(improved, zero, stall + 1)
+                        best_work = torch.minimum(best_work, work_now)
+                        best_metric = torch.minimum(best_metric, metric)
+                        applied_last = applied
+                        moves = moves + applied
+                        if curve_buf is not None:
+                            curve_buf[rounds] = torch.stack([
+                                x.to(torch.float32) for x in (applied, violated, stranded, metric)]
+                                + [torch.full((), float(resync), device=dev),
+                                   stall.to(torch.float32)])
+                        rounds += 1
+                        go_on, stop = self._go_on(gctx, rounds, use_stall_cutoff, budget,
+                                                  violated, stranded, applied_last, stall)
+                if seg_span is not None:
+                    seg_span.set("rounds", rounds)
+            segment += 1
+
+        with tr.span("solve.exit"):
+            if rounds > 0:
+                # The returned residuals come from one fresh recompute: the
+                # in-loop values ride the carried aggregates (exact up to
+                # float scatter-drift between resyncs).
                 ag = compute_aggregates(gctx, pl)
-            pl, ag, applied, violated, stranded, metric = runner(gctx, pl, ag, rounds)
-            work_now = violated + stranded
-            improved = ((work_now < best_work)
-                        | (metric < best_metric - 1e-4 * best_metric.abs() - 1e-12))
-            stall = torch.where(improved, zero, stall + 1)
-            best_work = torch.minimum(best_work, work_now)
-            best_metric = torch.minimum(best_metric, metric)
-            applied_last = applied
-            moves = moves + applied
-            if curve_buf is not None:
-                curve_buf[rounds] = torch.stack([
-                    x.to(torch.float32) for x in (applied, violated, stranded, metric)]
-                    + [torch.full((), float(resync), device=dev), stall.to(torch.float32)])
-            rounds += 1
-
-        if rounds > 0:
-            # The returned residuals come from one fresh recompute: the
-            # in-loop values ride the carried aggregates (exact up to float
-            # scatter-drift between resyncs).
-            ag = compute_aggregates(gctx, pl)
-            violated = goal.violated_brokers(gctx, pl, ag).sum()
-            stranded = currently_offline(gctx, pl).sum()
-            metric = goal.stats_metric(gctx, pl, ag)
-        else:
-            metric = metric0
-        vals, = _agree(gctx, torch.stack([x.to(torch.float64) for x in (
-            moves, violated0, violated, stranded, metric0, metric)]))
-        curve = None
-        if curve_buf is None:
-            vals = vals.tolist()
-        else:
-            # The goal's one copy of its curve, in the same transfer as its
-            # final numbers.
-            host = torch.cat([vals, curve_buf[:rounds].reshape(-1).to(torch.float64)]).cpu()
-            curve = host[6:].numpy().astype(np.float32).reshape(rounds, ROUND_STATS_COLS)
-            vals = host[:6].tolist()
-        info = GoalOptimizationInfo(
-            goal_name=goal.name,
-            rounds=rounds,
-            moves_applied=int(vals[0]),
-            violated_brokers_before=int(vals[1]),
-            violated_brokers_after=int(vals[2]),
-            stranded_after=int(vals[3]),
-            metric_before=vals[4],
-            metric_after=vals[5],
-            round_curve=curve,
-            preempted=stop is not None,
-            preempt_reason=stop,
-        )
-        return pl, ag, info
+                violated = goal.violated_brokers(gctx, pl, ag).sum()
+                stranded = currently_offline(gctx, pl).sum()
+                metric = goal.stats_metric(gctx, pl, ag)
+            else:
+                metric = metric0
+            vals, = _agree(gctx, torch.stack([x.to(torch.float64) for x in (
+                moves, violated0, violated, stranded, metric0, metric)]))
+            curve = None
+            if curve_buf is None:
+                vals = vals.tolist()
+            else:
+                # The goal's one copy of its curve, in the same transfer as
+                # its final numbers.
+                host = torch.cat([vals, curve_buf[:rounds].reshape(-1).to(torch.float64)]).cpu()
+                curve = host[6:].numpy().astype(np.float32).reshape(rounds, ROUND_STATS_COLS)
+                vals = host[:6].tolist()
+            return pl, ag, GoalOptimizationInfo(
+                goal_name=goal.name,
+                rounds=rounds,
+                moves_applied=int(vals[0]),
+                violated_brokers_before=int(vals[1]),
+                violated_brokers_after=int(vals[2]),
+                stranded_after=int(vals[3]),
+                metric_before=vals[4],
+                metric_after=vals[5],
+                round_curve=curve,
+                preempted=stop is not None,
+                preempt_reason=stop,
+            )
 
     def aggregates(self, gctx: GoalContext, placement: Placement) -> Aggregates:
         return compute_aggregates(gctx, placement)

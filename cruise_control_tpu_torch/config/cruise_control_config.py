@@ -307,9 +307,11 @@ def _trace_def() -> ConfigDef:
     d = ConfigDef()
     d.define("trace.enabled", ConfigType.BOOLEAN, False,
              doc="propagate a span tree through every HTTP request, "
-                 "precompute tick and executor batch (GET /trace); adds "
-                 "block_until_ready fences around solver dispatches, so "
-                 "leave off unless attributing time")
+                 "precompute tick, executor batch, proposal and what-if "
+                 "batch, down to each goal solve, round and phase (GET "
+                 "/trace); the analyzer's spans add no device "
+                 "synchronisation.  A torch.profiler window (POST /profile) "
+                 "records spans too while it collects, with this key off")
     d.define("trace.ring.size", ConfigType.INT, 32, range_validator(1),
              doc="how many recent root traces GET /trace retains")
     d.define("trace.audit.log.size", ConfigType.INT, 256, range_validator(1),

@@ -1,13 +1,20 @@
 """Contextvar-propagated span tracer (the JAX package's
 ``obsvc/tracer.py``).
 
-A tree of spans per logical operation (a request, a propose, a resident
-snapshot), propagated across threads with :mod:`contextvars` so work
-started under a span inherits it as parent.
+A tree of spans per logical operation (a request, a propose, a what-if
+batch, a resident snapshot), propagated across threads with
+:mod:`contextvars` so work started under a span inherits it as parent.
 
 * **Near-zero overhead when off.**  ``Tracer.span()`` returns a shared
-  no-op context manager when disabled: no allocation, no contextvar
-  traffic, no locking.
+  no-op context manager when tracing is off and no ``torch.profiler``
+  window is collecting: no allocation, no contextvar traffic, no locking.
+  The check is one attribute read of the profiler's own flag.
+* **On the profiler's clock.**  While a ``torch.profiler`` window collects
+  (``POST /profile``, a benchmark's traced requests), every span is
+  recorded whether or not tracing is on, and is mirrored into the
+  profiler as a ``cc.<span name>`` host range, opened and closed with the
+  span on the same thread: each span sits in the Chrome trace beside the
+  operations and kernels it launched, and the capture fills ``GET /trace``.
 * **Late children render.**  Root spans are appended to the ring when
   *they* close; children mutate the tree in place afterwards, so a reader
   always sees the latest picture (open spans render with ``wall_ms: null``).
@@ -15,10 +22,17 @@ started under a span inherits it as parent.
   ``Trace.<name>`` timer in the process registry
   (:func:`~cruise_control_tpu_torch.common.metrics.registry`) and a phase
   accumulator that :meth:`Tracer.rollup` drains.
-* **Device work.**  CUDA launches return before the card has done the work,
-  so a span that times device work synchronises the device before it
-  closes (the resident model's ``model.transfer`` and ``model.delta_apply``
-  do), as the JAX package's spans block on their results.
+* **Device work.**  CUDA launches return before the card has done the
+  work, so a span's wall is host time: the time to launch its work, plus
+  whatever host reads of device values it makes.  Only the resident
+  model's ``model.transfer`` and ``model.delta_apply`` synchronise the
+  device before they close, so that they time the copy and the apply
+  themselves.  The analyzer's spans (``optimize``, ``batch_optimize``,
+  ``lanes.*``, ``goal.*``, ``polish.*``, ``solve.*``, ``phase.*``,
+  ``round.stats``) add no synchronisation: a fence per span would change
+  the timing it measures, and the device's own time comes from the
+  profiler's trace, where each kernel falls inside the ``cc.*`` range
+  that launched it.
 """
 
 from __future__ import annotations
@@ -30,7 +44,13 @@ from collections import deque
 from contextvars import ContextVar
 from typing import Any, Dict, List, Optional
 
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
 from cruise_control_tpu_torch.common.metrics import registry
+
+#: The prefix of a span's range in a ``torch.profiler`` trace.
+PROFILER_PREFIX = "cc."
 
 _CURRENT: ContextVar[Optional["Span"]] = ContextVar("cc_trace_span",
                                                     default=None)
@@ -57,9 +77,6 @@ class Span:
     def set(self, key: str, value: Any) -> None:
         self.attrs[key] = value
 
-    def add_ms(self, key: str, ms: float) -> None:
-        self.attrs[key] = self.attrs.get(key, 0.0) + ms
-
     def to_dict(self) -> Dict[str, Any]:
         d: Dict[str, Any] = {
             "span_id": self.span_id,
@@ -71,11 +88,6 @@ class Span:
         }
         if self.attrs:
             d["attrs"] = dict(self.attrs)
-        # Compile/execute split: a span annotated with compile_ms splits
-        # its own wall time.
-        cm = self.attrs.get("compile_ms")
-        if cm is not None and self.wall_ms is not None:
-            d["attrs"]["execute_ms"] = round(max(self.wall_ms - cm, 0.0), 3)
         if self.children:
             d["children"] = [c.to_dict() for c in self.children]
         return d
@@ -85,9 +97,6 @@ class _NoopSpan:
     __slots__ = ()
 
     def set(self, key: str, value: Any) -> None:
-        pass
-
-    def add_ms(self, key: str, ms: float) -> None:
         pass
 
 
@@ -108,7 +117,7 @@ _NOOP_CTX = _NoopCtx()
 
 
 class _SpanCtx:
-    __slots__ = ("_tracer", "_name", "_attrs", "_span", "_token")
+    __slots__ = ("_tracer", "_name", "_attrs", "_span", "_token", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: Dict[str, Any]):
         self._tracer = tracer
@@ -122,15 +131,26 @@ class _SpanCtx:
             parent.children.append(span)
         self._span = span
         self._token = _CURRENT.set(span)
+        # The profiler's range opens after the span's clock starts and
+        # closes before it stops, so it nests inside the span's wall.  It is
+        # the C++ range behind ``record_function``'s fast path, a small
+        # fraction of the cost of the ``_record_function_enter_new`` /
+        # ``_exit`` ops, each of which is dispatched and profiled itself.
+        self._range = None
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = torch._C._profiler._RecordFunctionFast(PROFILER_PREFIX + self._name)
+            self._range.__enter__()
         return span
 
     def __exit__(self, exc_type: Any, exc: Any, tb: Any) -> bool:
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
         _CURRENT.reset(self._token)
         span = self._span
         span.wall_ms = (time.monotonic() - span._t0) * 1000.0
         if exc_type is not None:
             span.attrs["error"] = exc_type.__name__
-        self._tracer._on_end(span)
+        self._tracer._on_end(span, self._range is not None)
         return False
 
 
@@ -152,22 +172,25 @@ class Tracer:
 
     # -- span creation -----------------------------------------------------
     def span(self, name: str, **attrs: Any):
-        """Context manager for a timed phase; no-op when tracing is off."""
-        if not self.enabled:
+        """Context manager for a timed phase; no-op when tracing is off and
+        no profiler window is collecting."""
+        if not (self.enabled or _autograd_profiler._is_profiler_enabled):
             return _NOOP_CTX
         return _SpanCtx(self, name, attrs)
 
     def current(self) -> Optional[Span]:
-        if not self.enabled:
+        if not (self.enabled or _autograd_profiler._is_profiler_enabled):
             return None
         return _CURRENT.get()
 
     # -- completion / read side -------------------------------------------
-    def _on_end(self, span: Span) -> None:
+    def _on_end(self, span: Span, profiled: bool) -> None:
         # A span that was opened while tracing was on but closes after it
         # was switched off (a straggling background thread) records
-        # nothing — disable means stop collecting, immediately.
-        if not self.enabled:
+        # nothing — disable means stop collecting, immediately.  A span
+        # opened in a profiler window is recorded: its range is in the
+        # profiler's trace, and its tree is what ``GET /trace`` shows of it.
+        if not (self.enabled or profiled):
             return
         wall = span.wall_ms or 0.0
         with self._lock:

@@ -201,7 +201,7 @@ def _span_tree(mod):
         with t.span("model.freeze", replicas=3):
             pass
         with t.span("model.transfer") as sp:
-            sp.add_ms("compile_ms", 0.0)
+            sp.set("device_ms", 0.0)
         outer.set("goals", 2)
     with pytest.raises(KeyError):
         with t.span("failing"):
