@@ -363,7 +363,30 @@ class SmokeFailure(Exception):
 
 
 def emit(phase, **kw):
+    graphs = round_graph_counts()
+    if graphs is not None:
+        kw["round_graphs"] = graphs
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+_GRAPH_COUNTS = {}
+
+
+def round_graph_counts():
+    """The solver's round-graph counters in this process since the last
+    call: captures, replays, eager rounds and failed captures; None before
+    the solver is loaded, or where it keeps no round graphs."""
+    solver = sys.modules.get("cruise_control_tpu_torch.analyzer.solver")
+    sensors = getattr(solver, "ROUND_GRAPH_SENSORS", None)
+    if sensors is None:
+        return None
+    from cruise_control_tpu_torch.common.metrics import registry
+    out = {}
+    for name in sensors:
+        now = registry().counter(name).count
+        out[name.rsplit(".", 1)[1]] = now - _GRAPH_COUNTS.get(name, 0)
+        _GRAPH_COUNTS[name] = now
+    return out
 
 
 def check(cond, what):
@@ -680,8 +703,13 @@ def run_goals(aggregate, props, goal_names, device, constraint=None, placement=N
     check(not set(res.violated_goals_after) & hard,
           f"{goal_names}: hard goals violated after: {res.violated_goals_after}")
     check_proposals([p.to_dict() for p in res.proposals])
+    # The solver's round graphs (where it keeps them): how many, and the
+    # bytes of their static buffers and pools.
+    graphs = [g for g in getattr(optimizer.solver, "_graphs", {}).values()
+              if g.graph is not None]
     return dict(
         replicas=mt.num_replicas, brokers=mt.num_brokers, wall_s=wall,
+        round_graphs=len(graphs), round_graph_bytes=sum(g.nbytes for g in graphs),
         optimizer_s=res.elapsed_s, kernel_launches=launches,
         goals=[{k: g[k] for k in ("goal", "rounds", "moves", "violatedBrokersBefore",
                                   "violatedBrokersAfter")} for g in doc["goals"]],

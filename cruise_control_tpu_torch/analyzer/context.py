@@ -41,9 +41,14 @@ def hash01(a: torch.Tensor, b) -> torch.Tensor:
     device.  float32 ``sin`` of a large argument rounds differently on the
     card and on the CPU (16% of one swap tile's draws), and the draws break
     near-ties between candidates, so the same inputs would keep different
-    moves on the two."""
-    b = torch.as_tensor(b, device=a.device)
-    arg = a.to(torch.float32) * 12.9898 + b.to(torch.float32) * 78.233
+    moves on the two.  A host number ``b`` is folded in on the host, as the
+    float32 product a device forms, so that no value is copied to the
+    device (which a CUDA graph cannot capture)."""
+    arg = a.to(torch.float32) * 12.9898
+    if isinstance(b, torch.Tensor):
+        arg = arg + b.to(torch.float32) * 78.233
+    else:
+        arg = arg + float(np.float32(b) * np.float32(78.233))
     v = torch.sin(arg.to(torch.float64)).to(torch.float32) * 43758.5453
     return v - torch.floor(v)
 
@@ -337,8 +342,12 @@ def set_rows(x: torch.Tensor, idx: torch.Tensor, val,
     past the end, which is then cut off.  That is the duplicate-safe form of
     JAX's ``x.at[where(keep, idx, n)].set(val, mode="drop")`` — an
     out-of-range write raises on CUDA, and ``index_put_`` with duplicate
-    indices picks no defined winner.  Kept rows must be distinct."""
+    indices picks no defined winner.  Kept rows must be distinct.  A host
+    ``val`` is filled on the device first: writing a Python scalar copies
+    it from the host, which a CUDA graph cannot capture."""
     n = x.shape[0]
+    if not isinstance(val, torch.Tensor):
+        val = torch.full((), val, dtype=x.dtype, device=x.device)
     if keep is None:
         out = x.clone()
         out[idx.long()] = val

@@ -162,15 +162,17 @@ class ResourceDistributionGoal(Goal):
             g.resource for g in priors if isinstance(g, ResourceDistributionGoal)})
         if len(resources) == 1:
             return self.dst_prune_score(gctx, placement, agg)
-        res_idx = torch.tensor(resources, device=gctx.state.device)
+        # Columns taken one by one: an index tensor made from the list
+        # would be a copy to the device, which a CUDA graph cannot capture.
         alive = alive_mask(gctx)[:, None]
-        cap_k = gctx.state.capacity[:, res_idx]
+        cap_k = torch.stack([gctx.state.capacity[:, r] for r in resources], dim=1)
         caps = torch.clamp(cap_k, min=1e-9)                          # [B,K]
-        load = agg.broker_load[:, res_idx]                           # [B,K]
+        load = torch.stack([agg.broker_load[:, r] for r in resources], dim=1)  # [B,K]
         total = torch.where(alive, load, 0.0).sum(dim=0)             # [K]
         cap_tot = torch.where(alive, cap_k, 0.0).sum(dim=0)
         avg = total / torch.clamp(cap_tot, min=1e-9)                 # [K]
-        upper = avg * gctx.balance_threshold[res_idx] * caps         # [B,K]
+        band = torch.stack([gctx.balance_threshold[r] for r in resources])
+        upper = avg * band * caps                                    # [B,K]
         head_frac = (upper - load) / caps                            # [B,K]
         own = head_frac[:, resources.index(self.resource)]
         score = head_frac.amin(dim=-1) + 1e-3 * own

@@ -135,7 +135,10 @@ class KafkaAssignerEvenRackAwareGoal(Goal):
         lower = is_sib & (eff[safe] < eff[:, None])
         sib_rack = torch.where(lower, sib_rack, k)
         blocked = torch.zeros((r_n, k + 1), dtype=torch.bool, device=state.device)
-        blocked[r[:, None].expand_as(sib_rack), sib_rack.long()] = True
+        # A device True: writing a Python scalar copies it from the host,
+        # which a CUDA graph cannot capture.
+        blocked[r[:, None].expand_as(sib_rack), sib_rack.long()] = torch.ones(
+            (), dtype=torch.bool, device=state.device)
         blocked = blocked[:, :k]                                       # [R,K]
 
         over_r = (counts[eff, placement.broker] > upper[eff]) & state.valid

@@ -39,6 +39,21 @@ runs its tile anyway, fully masked (nothing is kept), instead of syncing to
 skip it.  Top-k is exact and
 breaks ties by index, as ``lax.top_k`` does.
 
+A round is one step (:meth:`GoalSolver._round_step`) that reads one set of
+buffers (the lane's context, the carried placement, aggregates and
+bookkeeping, and the round index as a device scalar) and writes its results
+back into them, with no host read.  On a CUDA device a key (goals, width,
+shapes) runs eagerly on its first solve; the first round of its second solve
+captures the step as a CUDA graph, and every later round of that key, in that
+solve or the next, is one replay: the card then runs the round's few hundred
+small kernels without waiting on the host to launch them one by one.  A
+replayed round opens no ``phase.*`` or ``round.stats`` span; each
+``solve.round`` says in its ``graph`` attribute whether it captured, replayed
+or ran eagerly, and why.  The step runs eagerly on the CPU, in a sharded
+solve, under round recording, for a goal solved by one transform (its phase
+recomputes the aggregates), on a key's first solve, when another thread holds
+the key's graph, and for a key whose capture failed.
+
 Every goal solve goes through :meth:`GoalSolver.dispatch`, the compile
 service's seam: its executable families are keyed as the JAX solver keys its
 ``_round_cache``, and it feeds compile telemetry and the cost ledger.
@@ -47,8 +62,10 @@ service's seam: its executable families are keyed as the JAX solver keys its
 from __future__ import annotations
 
 import dataclasses
+import logging
 import threading
 import time
+from collections import OrderedDict
 from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -72,15 +89,40 @@ from cruise_control_tpu_torch.analyzer.context import (
 )
 from cruise_control_tpu_torch.analyzer.goals.base import Goal
 from cruise_control_tpu_torch.common.exceptions import OptimizationFailureError
+from cruise_control_tpu_torch.common.metrics import registry
 from cruise_control_tpu_torch.common.resources import Resource
 from cruise_control_tpu_torch.compilesvc.telemetry import telemetry as _compile_telemetry
 from cruise_control_tpu_torch.model.state import Placement
 from cruise_control_tpu_torch.obsvc.convergence import ROUND_STATS_COLS
+from cruise_control_tpu_torch.obsvc.memory import measure_bytes
 from cruise_control_tpu_torch.obsvc.memory import memory_ledger as _memory_ledger
 from cruise_control_tpu_torch.obsvc.tracer import tracer as _tracer
 
+LOG = logging.getLogger(__name__)
+
 _SCORE_FLOOR = -1e29  # candidate scores below this are "not a candidate"
 _INF_COST = 3.4e38
+
+# Round graphs a solver keeps, least recently used first out.
+ROUND_GRAPH_SLOTS = 16
+# The device-memory ledger's subsystem for their static buffers.
+GRAPH_SUBSYSTEM = "solver.graphs"
+# What became of each round: captured, replayed, run eagerly; and the
+# captures that failed.
+GRAPH_CAPTURES_SENSOR = "Solver.round-graph.captures"
+GRAPH_REPLAYS_SENSOR = "Solver.round-graph.replays"
+GRAPH_EAGER_SENSOR = "Solver.round-graph.eager-rounds"
+GRAPH_FAILURES_SENSOR = "Solver.round-graph.capture-failures"
+ROUND_GRAPH_SENSORS = (GRAPH_CAPTURES_SENSOR, GRAPH_REPLAYS_SENSOR, GRAPH_EAGER_SENSOR,
+                       GRAPH_FAILURES_SENSOR)
+
+
+def round_graph_sensors() -> None:
+    """Materialize the Solver.round-graph.* counters (at 0) so a scrape sees
+    them before the first round."""
+    reg = registry()
+    for name in ROUND_GRAPH_SENSORS:
+        reg.counter(name)
 
 # Round-level convergence recording (trace.solver.rounds); the column layout
 # is owned by obsvc/convergence.py.
@@ -115,6 +157,55 @@ def shape_signature(tree) -> tuple:
         elif isinstance(x, int):
             sig.append(x)
     return tuple(sig)
+
+
+def _tensor_leaves(tree) -> list:
+    """The tensors of ``tree`` in one fixed walk order over dataclass fields,
+    tuples and lists (the order :func:`_copy_into` pairs them in)."""
+    out = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name))
+        elif isinstance(x, (tuple, list)):
+            for y in x:
+                walk(y)
+
+    walk(tree)
+    return out
+
+
+def _cloned(tree):
+    """``tree`` with every tensor cloned (dataclasses rebuilt field by field)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{f.name: _cloned(getattr(tree, f.name))
+                                            for f in dataclasses.fields(tree)})
+    return tree
+
+
+def _copy_into(dst, src) -> None:
+    """Copy each tensor of ``src`` into its place in ``dst``, a tree of the
+    same structure: one ``torch._foreach_copy_`` per dtype, since its fused
+    kernel takes one dtype a call."""
+    groups: Dict[torch.dtype, Tuple[list, list]] = {}
+    for d, x in zip(_tensor_leaves(dst), _tensor_leaves(src)):
+        ds, xs = groups.setdefault(d.dtype, ([], []))
+        ds.append(d)
+        xs.append(x)
+    for ds, xs in groups.values():
+        torch._foreach_copy_(ds, xs)
+
+
+def _goal_key(goal: Goal) -> tuple:
+    """A goal as a round graph's key holds it: its class and attributes
+    (a resource, a name), so the fresh goal objects of each request find
+    the graph again."""
+    return (type(goal), tuple(sorted(vars(goal).items())))
 
 
 class Dispatch:
@@ -190,6 +281,10 @@ class GoalOptimizationInfo:
     @property
     def succeeded(self) -> bool:
         return self.violated_brokers_after == 0
+
+
+def _no_span(name: str):
+    return nullcontext()
 
 
 def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
@@ -823,6 +918,159 @@ def _direct_phase(goal: Goal):
     return phase
 
 
+@dataclass
+class _Carry:
+    """What one round hands the next: the placement, the aggregates, the
+    stall and best-work bookkeeping, and the loop condition's four values
+    (violated, stranded, applied, stall), i64[4]."""
+
+    placement: Placement
+    agg: Aggregates
+    moves: torch.Tensor
+    stall: torch.Tensor
+    best_work: torch.Tensor
+    best_metric: torch.Tensor
+    cond: torch.Tensor
+
+
+def _end_failed_capture(device: torch.device, pool) -> None:
+    """Give the caching allocator its normal state back after a capture that
+    ``capture_end`` did not end: the CUDA runtime invalidated it (a host read
+    or sync inside the round), or it never began.  Until the allocator stops
+    routing the stream's allocations to the graph's private pool, it defers
+    frees across streams, skips its event processing and refuses to empty
+    its cache; and the graph object never releases a pool whose capture did
+    not end.  Where ``capture_end`` got as far as ending the routing, the
+    graph object releases the pool itself."""
+    index = torch.cuda._get_device_index(device, optional=True)
+    try:
+        torch._C._cuda_endAllocateToPool(index, pool)
+    except RuntimeError:
+        return
+    torch._C._cuda_releasePool(index, pool)
+
+
+class _RoundGraph:
+    """One key's entry, made on its first solve, and from its second the
+    captured round: the CUDA graph, the static buffers it reads and writes
+    (a lane's context, the carry, the round index), their bytes as posted
+    to the memory ledger, and the lock a solve holds while it uses them."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.gctx: Optional[GoalContext] = None
+        self.carry: Optional[_Carry] = None
+        self.ridx: Optional[torch.Tensor] = None
+        self.nbytes = 0
+        self.failed = False
+
+    def drop(self) -> None:
+        """Free the graph and its buffers, and take them off the ledger."""
+        if self.graph is not None:
+            _memory_ledger().post(GRAPH_SUBSYSTEM, self.nbytes, kind="free")
+        self.graph = self.gctx = self.carry = self.ridx = None
+
+
+class _Rounds:
+    """The rounds of one solve.  :meth:`run` fills the round index, resyncs
+    the aggregates eagerly where one is due (so the aggregate kernel's
+    cooperative launch never enters a graph), then replays the key's round
+    graph, captures it, or runs :meth:`GoalSolver._round_step` eagerly, and
+    says which: the ``solve.round`` span's ``graph`` attribute."""
+
+    def __init__(self, solver: "GoalSolver", runner, gctx: GoalContext, carry: _Carry,
+                 curve: Optional[torch.Tensor], held: Optional[_RoundGraph],
+                 reason: Optional[str]):
+        self.solver, self.runner, self.curve = solver, runner, curve
+        self.held = held          # the key's graph entry, locked by this solve
+        self.reason = reason      # why the rounds run eagerly (None: a graph)
+        if held is None:
+            # The solve's own copies: the caller's tensors are never written.
+            self.gctx, self.carry = gctx, _cloned(carry)
+            self.ridx = torch.zeros((), dtype=torch.int64, device=gctx.state.device)
+            return
+        if held.graph is None:
+            held.gctx, held.carry = _cloned(gctx), _cloned(carry)
+            held.ridx = torch.zeros((), dtype=torch.int64, device=gctx.state.device)
+        else:
+            _copy_into((held.gctx, held.carry), (gctx, carry))
+        self.gctx, self.carry, self.ridx = held.gctx, held.carry, held.ridx
+
+    def run(self, rounds: int) -> str:
+        self.ridx.fill_(rounds)
+        if rounds > 0 and rounds % self.solver.AGG_RESYNC_ROUNDS == 0:
+            _copy_into(self.carry.agg, compute_aggregates(self.gctx, self.carry.placement))
+        if self.reason is None:
+            if self.held.graph is None:
+                return self._capture()
+            self.held.graph.replay()
+            registry().counter(GRAPH_REPLAYS_SENSOR).inc()
+            return "replay"
+        self.solver._round_step(self.runner, self.gctx, self.carry, self.ridx, self.curve)
+        registry().counter(GRAPH_EAGER_SENSOR).inc()
+        return f"eager:{self.reason}"
+
+    def _capture(self) -> str:
+        """The key's first round: run eagerly on a side stream (the warm-up,
+        and this round's work), then captured from the buffers it left.
+        The capture takes the CUDA graph API directly: ``torch.cuda.graph``
+        would synchronize the device, collect garbage and empty the cache at
+        every capture, and leave its stream current when a capture fails."""
+        held = self.held
+        dev = self.gctx.state.device
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        graph = torch.cuda.CUDAGraph()
+        pool = torch.cuda.graph_pool_handle()
+        try:
+            with torch.cuda.stream(side):
+                self.solver._round_step(self.runner, self.gctx, self.carry, self.ridx)
+                ended = False
+                try:
+                    graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+                    try:
+                        self.solver._round_step(self.runner, self.gctx, self.carry, self.ridx,
+                                                spans=False)
+                    finally:
+                        graph.capture_end()
+                        ended = True
+                except Exception as e:  # noqa: BLE001 — any failure falls back to eager rounds
+                    if not ended:
+                        _end_failed_capture(dev, pool)
+                    held.failed = True
+                    self.reason = "capture_failed"
+                    registry().counter(GRAPH_FAILURES_SENSOR).inc()
+                    registry().counter(GRAPH_EAGER_SENSOR).inc()
+                    LOG.warning("solver round graph: capture failed, the key's rounds run "
+                                "eagerly: %r", e, exc_info=True)
+                    return "eager:capture_failed"
+        finally:
+            main.wait_stream(side)
+        held.graph = graph
+        # The static buffers, which the allocator counts in use.  The graph's
+        # private pool is reserved, not in use, between replays: the ledger
+        # mirrors in-use bytes and is held to the allocator's count of them.
+        held.nbytes = measure_bytes((held.gctx, held.carry, held.ridx))
+        _memory_ledger().post(GRAPH_SUBSYSTEM, held.nbytes)
+        registry().counter(GRAPH_CAPTURES_SENSOR).inc()
+        return "capture"
+
+    def placement(self) -> Placement:
+        """The solve's placement, cloned out of a graph's static buffers,
+        which the next solve's copy-in overwrites."""
+        pl = self.carry.placement
+        return pl if self.held is None else _cloned(pl)
+
+    def close(self) -> None:
+        if self.held is not None:
+            if self.held.failed:
+                self.held.drop()
+            self.held.lock.release()
+            self.held = None
+
+
 class GoalSolver:
     """Runs one goal's convergence loop of batched rounds."""
 
@@ -862,6 +1110,10 @@ class GoalSolver:
         # Optional :class:`~cruise_control_tpu_torch.parallel.mesh.SolverMesh`:
         # :meth:`shard_inputs` gives each solve this rank's replica shard.
         self.mesh = mesh
+        # Round graphs by key (:meth:`_start_rounds`), least recently used first.
+        self._graphs: "OrderedDict[tuple, _RoundGraph]" = OrderedDict()
+        self._graphs_lock = threading.Lock()
+        round_graph_sensors()
 
     def shard_inputs(self, gctx: GoalContext, placement: Placement):
         """(gctx, placement) committed to this solver's mesh: the context
@@ -983,13 +1235,15 @@ class GoalSolver:
         phases = self._phases(goal, priors, c)
         tr = _tracer()
 
-        def run(gctx: GoalContext, placement: Placement, agg: Aggregates, ridx: int):
+        def run(gctx: GoalContext, placement: Placement, agg: Aggregates, ridx,
+                spans: bool = True):
+            span = tr.span if spans else _no_span
             applied = torch.zeros((), dtype=torch.int64, device=gctx.state.device)
             for name, phase in phases:
-                with tr.span(name):
+                with span(name):
                     placement, agg, n = phase(gctx, placement, agg, ridx)
                     applied = applied + n
-            with tr.span("round.stats"):
+            with span("round.stats"):
                 violated = goal.violated_brokers(gctx, placement, agg).sum()
                 stranded = currently_offline(gctx, placement).sum()
                 metric = goal.stats_metric(gctx, placement, agg)
@@ -1061,14 +1315,100 @@ class GoalSolver:
             d.outputs = out[:2]
         return out
 
+    def _round_step(self, runner, gctx: GoalContext, carry: _Carry, ridx: torch.Tensor,
+                    curve: Optional[torch.Tensor] = None, spans: bool = True) -> None:
+        """One round on ``carry``, written back into it: the phases and
+        ``round.stats`` (``runner``), the stall and best-work bookkeeping,
+        the loop condition's values, and with ``curve`` the round's
+        ``ROUND_STATS_COLS`` row.  ``ridx`` is the round index, an i64
+        device scalar.  It reads nothing back to the host, so a CUDA graph
+        can capture it, and it is the same step where none does."""
+        pl, ag, applied, violated, stranded, metric = runner(gctx, carry.placement, carry.agg,
+                                                             ridx, spans)
+        work_now = violated + stranded
+        improved = ((work_now < carry.best_work)
+                    | (metric < carry.best_metric - 1e-4 * carry.best_metric.abs() - 1e-12))
+        stall = torch.where(improved, 0, carry.stall + 1)
+        if curve is not None:
+            resync = (ridx > 0) & (ridx % self.AGG_RESYNC_ROUNDS == 0)
+            # A 1-d index: a 0-d tensor index is read back to the host.
+            curve.index_copy_(0, ridx.reshape(1), torch.stack([x.to(torch.float32) for x in (
+                applied, violated, stranded, metric, resync, stall)])[None])
+        _copy_into(carry, _Carry(
+            placement=pl, agg=ag, moves=carry.moves + applied, stall=stall,
+            best_work=torch.minimum(carry.best_work, work_now),
+            best_metric=torch.minimum(carry.best_metric, metric),
+            cond=torch.stack([violated, stranded, applied, stall])))
+
+    def _start_rounds(self, goal: Goal, priors: Sequence[Goal], c: int, runner,
+                      gctx: GoalContext, carry: _Carry,
+                      curve: Optional[torch.Tensor]) -> _Rounds:
+        """The rounds of a solve, from its first: on the round graph of its
+        key (goals, width, the solver's tile settings, the input shapes),
+        held by this solve until :meth:`_Rounds.close`; or eager, for the
+        reason its inputs give, on the key's first solve, or where the key's
+        graph is unusable."""
+        if gctx.state.device.type != "cuda":
+            reason = "cpu"
+        elif gctx.shard is not None:
+            reason = "shard"       # the rounds' collectives (``_agree``) stay eager
+        elif curve is not None:
+            reason = "recording"
+        elif goal.is_direct:
+            # Its phase recomputes the aggregates, whose kernel's cooperative
+            # launch refuses a capture.
+            reason = "direct"
+        else:
+            key = (gctx.state.device, _goal_key(goal), tuple(_goal_key(g) for g in priors),
+                   c, self.dst_jitter_frac, self.max_dst_candidates, self.max_swap_candidates,
+                   shape_signature((gctx, carry.placement, carry.agg)))
+            held, reason = self._hold_graph(key)
+            if held is not None:
+                return _Rounds(self, runner, gctx, carry, curve, held, None)
+        return _Rounds(self, runner, gctx, carry, curve, None, reason)
+
+    def _hold_graph(self, key) -> Tuple[Optional[_RoundGraph], Optional[str]]:
+        """(``key``'s graph entry, locked; None) or (None, why not: ``first``
+        on the key's first solve, which only makes its entry;
+        ``capture_failed``; or ``busy`` when another thread's solve holds
+        it).  A key is captured on its second solve: a capture costs more
+        host time than the eager round it stands for, and the graph keeps a
+        copy of the context, so a key solved once, as each goal of a
+        one-shot proposal is, would pay both and replay little.  A miss
+        past :data:`ROUND_GRAPH_SLOTS` entries drops the least recently used
+        ones no solve holds."""
+        with self._graphs_lock:
+            held = self._graphs.get(key)
+            if held is None:
+                self._graphs[key] = _RoundGraph()
+                for old in list(self._graphs)[:-1]:
+                    if len(self._graphs) <= ROUND_GRAPH_SLOTS:
+                        break
+                    entry = self._graphs[old]
+                    if entry.lock.acquire(blocking=False):
+                        del self._graphs[old]
+                        entry.drop()
+                        entry.lock.release()
+                return None, "first"
+            self._graphs.move_to_end(key)
+        if held.failed:
+            return None, "capture_failed"
+        if not held.lock.acquire(blocking=False):
+            return None, "busy"
+        if held.failed:
+            held.lock.release()
+            return None, "capture_failed"
+        return held, None
+
     def _go_on(self, gctx: GoalContext, rounds: int, use_stall_cutoff: bool, budget,
-               violated, stranded, applied_last, stall) -> Tuple[bool, Optional[str]]:
+               cond: torch.Tensor) -> Tuple[bool, Optional[str]]:
         """The loop condition before round ``rounds``: (run it, the
-        segmented budget's stop reason).  Its read of the device values is
-        the one host sync of each round."""
+        segmented budget's stop reason) from ``cond`` (violated, stranded,
+        applied last round, stall).  Its read of the device values is the
+        one host sync of each round."""
         if rounds >= self.max_rounds:
             return False, None
-        cond, = _agree(gctx, torch.stack([violated, stranded, applied_last, stall]))
+        cond, = _agree(gctx, cond)
         v, s, a, st = cond.tolist()
         if not ((v > 0 or s > 0) and (rounds == 0 or a > 0)):
             return False, None
@@ -1089,7 +1429,8 @@ class GoalSolver:
         Its spans partition it: ``solve.enter`` (the entry aggregates where
         ``agg`` is None, the entry residuals and the loop condition before
         the first round), one ``solve.round`` a round
-        (its phases, ``round.stats`` and the loop condition after it; under
+        (its resync, the round itself and the loop condition after it,
+        with ``graph`` saying how the round ran; under
         a segmented budget, grouped ``segment_rounds`` at a time into
         ``solve.segment`` spans) and ``solve.exit`` (the fresh recompute
         and the one read of the goal's numbers)."""
@@ -1107,87 +1448,78 @@ class GoalSolver:
             stranded0 = currently_offline(gctx, placement).sum()
             metric0 = goal.stats_metric(gctx, placement, agg)
 
-            pl, ag = placement, agg
             rounds = 0
             zero = torch.zeros((), dtype=torch.int64, device=dev)
-            applied_last, moves, stall = zero + 1, zero, zero
-            violated, stranded = violated0, stranded0
-            best_work, best_metric = violated0 + stranded0, metric0
+            carry = _Carry(placement=placement, agg=agg, moves=zero, stall=zero,
+                           best_work=violated0 + stranded0, best_metric=metric0,
+                           cond=torch.stack([violated0, stranded0, zero + 1, zero]))
             # Round recording: one row a round into a preallocated device
             # buffer, in the ROUND_COL_* order; no sync of its own.
             curve_buf = (torch.zeros((self.max_rounds, ROUND_STATS_COLS), dtype=torch.float32,
                                      device=dev) if _RECORD_ROUNDS else None)
             go_on = False
             if stop is None:
-                go_on, stop = self._go_on(gctx, rounds, use_stall_cutoff, budget, violated,
-                                          stranded, applied_last, stall)
+                go_on, stop = self._go_on(gctx, rounds, use_stall_cutoff, budget, carry.cond)
         segment = 0
-        while go_on:
-            seg_end = min(rounds + self.segment_rounds, self.max_rounds)
-            with (tr.span("solve.segment", goal=goal.name, segment=segment, seg_end=seg_end)
-                  if segmented else nullcontext()) as seg_span:
-                while go_on and (not segmented or rounds < seg_end):
-                    with tr.span("solve.round", round=rounds):
-                        resync = rounds > 0 and rounds % self.AGG_RESYNC_ROUNDS == 0
-                        if resync:
-                            ag = compute_aggregates(gctx, pl)
-                        pl, ag, applied, violated, stranded, metric = runner(gctx, pl, ag,
-                                                                             rounds)
-                        work_now = violated + stranded
-                        improved = ((work_now < best_work)
-                                    | (metric < best_metric - 1e-4 * best_metric.abs() - 1e-12))
-                        stall = torch.where(improved, zero, stall + 1)
-                        best_work = torch.minimum(best_work, work_now)
-                        best_metric = torch.minimum(best_metric, metric)
-                        applied_last = applied
-                        moves = moves + applied
-                        if curve_buf is not None:
-                            curve_buf[rounds] = torch.stack([
-                                x.to(torch.float32) for x in (applied, violated, stranded, metric)]
-                                + [torch.full((), float(resync), device=dev),
-                                   stall.to(torch.float32)])
-                        rounds += 1
-                        go_on, stop = self._go_on(gctx, rounds, use_stall_cutoff, budget,
-                                                  violated, stranded, applied_last, stall)
-                if seg_span is not None:
-                    seg_span.set("rounds", rounds)
-            segment += 1
+        rs: Optional[_Rounds] = None
+        try:
+            while go_on:
+                seg_end = min(rounds + self.segment_rounds, self.max_rounds)
+                with (tr.span("solve.segment", goal=goal.name, segment=segment,
+                              seg_end=seg_end)
+                      if segmented else nullcontext()) as seg_span:
+                    while go_on and (not segmented or rounds < seg_end):
+                        with tr.span("solve.round", round=rounds) as round_span:
+                            if rs is None:
+                                rs = self._start_rounds(goal, priors, c, runner, gctx, carry,
+                                                        curve_buf)
+                            round_span.set("graph", rs.run(rounds))
+                            rounds += 1
+                            go_on, stop = self._go_on(gctx, rounds, use_stall_cutoff, budget,
+                                                      rs.carry.cond)
+                    if seg_span is not None:
+                        seg_span.set("rounds", rounds)
+                segment += 1
 
-        with tr.span("solve.exit"):
-            if rounds > 0:
-                # The returned residuals come from one fresh recompute: the
-                # in-loop values ride the carried aggregates (exact up to
-                # float scatter-drift between resyncs).
-                ag = compute_aggregates(gctx, pl)
-                violated = goal.violated_brokers(gctx, pl, ag).sum()
-                stranded = currently_offline(gctx, pl).sum()
-                metric = goal.stats_metric(gctx, pl, ag)
-            else:
-                metric = metric0
-            vals, = _agree(gctx, torch.stack([x.to(torch.float64) for x in (
-                moves, violated0, violated, stranded, metric0, metric)]))
-            curve = None
-            if curve_buf is None:
-                vals = vals.tolist()
-            else:
-                # The goal's one copy of its curve, in the same transfer as
-                # its final numbers.
-                host = torch.cat([vals, curve_buf[:rounds].reshape(-1).to(torch.float64)]).cpu()
-                curve = host[6:].numpy().astype(np.float32).reshape(rounds, ROUND_STATS_COLS)
-                vals = host[:6].tolist()
-            return pl, ag, GoalOptimizationInfo(
-                goal_name=goal.name,
-                rounds=rounds,
-                moves_applied=int(vals[0]),
-                violated_brokers_before=int(vals[1]),
-                violated_brokers_after=int(vals[2]),
-                stranded_after=int(vals[3]),
-                metric_before=vals[4],
-                metric_after=vals[5],
-                round_curve=curve,
-                preempted=stop is not None,
-                preempt_reason=stop,
-            )
+            with tr.span("solve.exit"):
+                pl, ag, moves = placement, agg, carry.moves
+                violated, stranded, metric = violated0, stranded0, metric0
+                if rounds > 0:
+                    # The returned residuals come from one fresh recompute:
+                    # the in-loop values ride the carried aggregates (exact
+                    # up to float scatter-drift between resyncs).
+                    pl, moves = rs.placement(), rs.carry.moves
+                    ag = compute_aggregates(gctx, pl)
+                    violated = goal.violated_brokers(gctx, pl, ag).sum()
+                    stranded = currently_offline(gctx, pl).sum()
+                    metric = goal.stats_metric(gctx, pl, ag)
+                vals, = _agree(gctx, torch.stack([x.to(torch.float64) for x in (
+                    moves, violated0, violated, stranded, metric0, metric)]))
+                curve = None
+                if curve_buf is None:
+                    vals = vals.tolist()
+                else:
+                    # The goal's one copy of its curve, in the same transfer
+                    # as its final numbers.
+                    host = torch.cat([vals, curve_buf[:rounds].reshape(-1).to(torch.float64)]).cpu()
+                    curve = host[6:].numpy().astype(np.float32).reshape(rounds, ROUND_STATS_COLS)
+                    vals = host[:6].tolist()
+                return pl, ag, GoalOptimizationInfo(
+                    goal_name=goal.name,
+                    rounds=rounds,
+                    moves_applied=int(vals[0]),
+                    violated_brokers_before=int(vals[1]),
+                    violated_brokers_after=int(vals[2]),
+                    stranded_after=int(vals[3]),
+                    metric_before=vals[4],
+                    metric_after=vals[5],
+                    round_curve=curve,
+                    preempted=stop is not None,
+                    preempt_reason=stop,
+                )
+        finally:
+            if rs is not None:
+                rs.close()
 
     def aggregates(self, gctx: GoalContext, placement: Placement) -> Aggregates:
         return compute_aggregates(gctx, placement)

@@ -297,6 +297,10 @@ def broker_channel_sums(channels: torch.Tensor, broker: torch.Tensor,
                         f"{channels.dtype} and {broker.dtype}")
     if not (channels.is_contiguous() and broker.is_contiguous()):
         raise ValueError("channels and broker must be contiguous")
+    if torch.cuda.is_current_stream_capturing():
+        # A replayed graph would launch it uncounted, and a cooperative
+        # launch is kept out of graphs: callers recompute aggregates eagerly.
+        raise RuntimeError("the aggregate kernel is not launched inside a CUDA graph capture")
     r, k = channels.shape
     got = _plans.get((r, k, num_segments, index))
     if got is None:

@@ -10,6 +10,8 @@ order) and lie within min(n - 1, 4 sqrt(n)) * 2^-24 * sum |x| of the
 float64 sum (chip_smoke.py's zero-mean bar); count channels must be exact.
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -483,3 +485,311 @@ def test_full_mode_cost_row_on_the_card(cuda, monkeypatch):
         assert row["temp_bytes"] >= 0 and row["arg_bytes"] > 0
         assert row["peak_bytes"] == row["arg_bytes"] + row["out_bytes"] + row["temp_bytes"]
     assert any(row["temp_bytes"] > 0 for row in rows.values())
+
+
+# ------------------------------------------------------------ round graphs
+#
+# The benchmark's configuration (``ccbench``'s ``randomcluster_40b_50k``: 40
+# brokers in 10 racks, 47,172 replicas, seed 3140) on the card, solved once
+# for the hard goals; each lane removes one broker from that placement, and
+# RackAwareGoal moves its ~1,180 replicas in three rounds.  The graph path
+# must give bit for bit what the eager step gives on the same inputs.
+
+LANE_BROKERS = (3, 17, 28)
+# Two eager solves of one lane differ by up to ~2e-6 of a per-broker sum on
+# the card (the sums' float adds have no fixed order).
+SUM_ORDER_TOL = dict(rtol=1e-5, atol=1e-3)
+LANE_WIDTH = 512
+GRAPH_SENSORS = ("Solver.round-graph.captures", "Solver.round-graph.replays",
+                 "Solver.round-graph.eager-rounds", "Solver.round-graph.capture-failures")
+
+
+@pytest.fixture(scope="module")
+def bench_cluster():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: round graphs are captured on the card")
+    import json
+    from pathlib import Path
+    from types import SimpleNamespace
+
+    from ccbench.harness import cluster, program
+    from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+
+    cfg = json.loads((Path(__file__).resolve().parents[1]
+                      / "ccbench/configs/randomcluster_40b_50k.json").read_text())
+    snap = cluster.generate(cfg["cluster"])
+    state, placement, meta = program.snapshot(snap.packed, snap.meta_kwargs(), "cuda")
+    constraint = program.constraint(cfg["balancing"])
+    healthy = GoalOptimizer(constraint=constraint, goal_names=cfg["goals"]["hard"]).optimizations(
+        state, placement, meta).final_placement
+    return SimpleNamespace(state=state, meta=meta, constraint=constraint, healthy=healthy)
+
+
+def _lane_contexts(b, brokers=LANE_BROKERS):
+    """One lane context a removed broker, from a fresh ``build_context``
+    (each request builds its own)."""
+    from cruise_control_tpu_torch.analyzer.context import build_context, scenario_context
+    from cruise_control_tpu_torch.analyzer.optimizer import _scenario_masks
+    from cruise_control_tpu_torch.analyzer.options import OptimizationOptions
+
+    gctx = build_context(b.state, b.healthy, b.meta, b.constraint, OptimizationOptions())
+    masks = _scenario_masks(gctx, b.state, b.meta, [[b.meta.broker_ids[i]] for i in brokers],
+                            False)
+    return [scenario_context(gctx, *(m[s] for m in masks)) for s in range(len(brokers))]
+
+
+def _solve(solver, b, lctx, goal=None):
+    from cruise_control_tpu_torch.analyzer.goals.rack import RackAwareGoal
+    return solver.optimize_goal(goal or RackAwareGoal(), [], lctx, b.healthy, width=LANE_WIDTH)
+
+
+def _eager(fn):
+    """``fn()`` with every round run eagerly on the card, as when another
+    thread holds the key's graph."""
+    from cruise_control_tpu_torch.analyzer.solver import GoalSolver
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(GoalSolver, "_hold_graph", lambda self, key: (None, "busy"))
+        return fn()
+
+
+def _graph_counts():
+    from cruise_control_tpu_torch.common.metrics import registry
+    return np.array([registry().counter(n).count for n in GRAPH_SENSORS])
+
+
+def _bit_equal(got, want):
+    """Placements, counts and the goal's numbers, bit for bit.  The float
+    aggregates come from the exit's recompute of equal placements, whose
+    float adds have no fixed order on the card (two eager solves differ
+    alike): they hold to :data:`SUM_ORDER_TOL`."""
+    (pl, ag, info), (pl0, ag0, info0) = got, want
+    for name in ("broker", "disk", "is_leader"):
+        assert torch.equal(getattr(pl, name), getattr(pl0, name)), name
+    for name in ag.__dataclass_fields__:
+        a, a0 = getattr(ag, name), getattr(ag0, name)
+        if a.is_floating_point():
+            torch.testing.assert_close(a, a0, **SUM_ORDER_TOL)
+        else:
+            assert torch.equal(a, a0), name
+    for name in ("rounds", "moves_applied", "violated_brokers_before", "violated_brokers_after",
+                 "stranded_after", "metric_before", "metric_after"):
+        assert getattr(info, name) == getattr(info0, name), name
+    assert info.rounds >= 2 and info.moves_applied > 0
+
+
+@pytest.mark.cuda
+def test_round_graph_lanes_back_to_back_equal_eager(bench_cluster):
+    """The first lane, the key's first solve, runs eagerly; the second
+    captures its first round and replays the rest; the third replays every
+    round.  A returned placement is the solve's own: the later lanes'
+    copies into the static buffers leave it as it was."""
+    from cruise_control_tpu_torch.analyzer.solver import GoalSolver
+    from cruise_control_tpu_torch.obsvc.tracer import tracer
+
+    from cruise_control_tpu_torch.obsvc import memory
+
+    lanes = _lane_contexts(bench_cluster)
+    want = _eager(lambda: [_solve(GoalSolver(), bench_cluster, l) for l in lanes])
+    solver = GoalSolver()
+    before = _graph_counts()
+    tr = tracer()
+    tr.configure(enabled=True, ring_size=32)
+    tr.reset()
+    was = memory.memory_ledger()
+    ledger = memory.DeviceMemoryLedger()
+    ledger.configure(enabled=True)
+    memory.set_memory_ledger(ledger)
+    try:
+        got = []
+        for lctx in lanes:
+            with tr.span("lane"):
+                got.append(_solve(solver, bench_cluster, lctx))
+        trees = tr.traces()
+        # The graph's static buffers are posted; the ledger stays within its
+        # bound of the allocator's in-use bytes.
+        g, = solver._graphs.values()
+        assert ledger.live_bytes("solver.graphs") == g.nbytes == memory.measure_bytes(
+            (g.gctx, g.carry, g.ridx)) > 0
+        assert ledger.verify_balanced() == []
+    finally:
+        memory.set_memory_ledger(was)
+        tr.configure(enabled=False, ring_size=32)
+        tr.reset()
+    r0, r1, r2 = (info.rounds for _, _, info in got)
+    assert (_graph_counts() - before).tolist() == [1, r1 - 1 + r2, r0, 0]
+    how = [[r["attrs"]["graph"] for r in t["children"] if r["name"] == "solve.round"]
+           for t in trees]
+    assert how == [["eager:first"] * r0, ["capture"] + ["replay"] * (r1 - 1), ["replay"] * r2]
+    # A replayed round opens no phase span; eager and captured ones run
+    # their phases.
+    for t, h in zip(trees, how):
+        for r, g in zip([r for r in t["children"] if r["name"] == "solve.round"], h):
+            assert ("children" in r) == (g != "replay"), g
+            if g != "replay":
+                assert r["children"][-1]["name"] == "round.stats"
+    statics = {t.data_ptr() for g in solver._graphs.values() for t in (
+        g.carry.placement.broker, g.carry.placement.disk, g.carry.placement.is_leader)}
+    for (pl, ag, info), w in zip(got, want):
+        assert pl.broker.data_ptr() not in statics
+        _bit_equal((pl, ag, info), w)
+
+
+@pytest.mark.cuda
+def test_round_graph_replayed_for_the_next_request(bench_cluster):
+    """A new request builds a new context and new goal objects: its solves
+    replay the graph captured before (on the key's second solve), and
+    capture none."""
+    from cruise_control_tpu_torch.analyzer.solver import GoalSolver
+
+    solver = GoalSolver()
+    for lctx in _lane_contexts(bench_cluster)[:2]:
+        _solve(solver, bench_cluster, lctx)
+    lctx = _lane_contexts(bench_cluster, brokers=(31,))[0]
+    before = _graph_counts()
+    got = _solve(solver, bench_cluster, lctx)
+    assert (_graph_counts() - before).tolist() == [0, got[2].rounds, 0, 0]
+    _bit_equal(got, _eager(lambda: _solve(GoalSolver(), bench_cluster, lctx)))
+
+
+@pytest.mark.cuda
+def test_round_graph_resync_rounds_stay_eager(bench_cluster):
+    """A resync every round: the aggregates are recomputed eagerly (the
+    aggregate kernel refuses a capture) and copied in before each replay."""
+    from cruise_control_tpu_torch.analyzer.solver import GoalSolver
+
+    def resyncing():
+        s = GoalSolver()
+        s.AGG_RESYNC_ROUNDS = 1
+        return s
+
+    lanes = _lane_contexts(bench_cluster)
+    want = _eager(lambda: [_solve(resyncing(), bench_cluster, l) for l in lanes])
+    solver = resyncing()
+    before = _graph_counts()
+    launches = aggregate.LAUNCHES
+    got = [_solve(solver, bench_cluster, l) for l in lanes]
+    r0, r1, r2 = (info.rounds for _, _, info in got)
+    rounds = r0 + r1 + r2
+    assert (_graph_counts() - before).tolist() == [1, r1 - 1 + r2, r0, 0]
+    # Each lane: its entry and exit recomputes, and a resync before every
+    # round but its first.
+    assert aggregate.LAUNCHES - launches == rounds + len(lanes)
+    for g, w in zip(got, want):
+        _bit_equal(g, w)
+
+
+@pytest.mark.cuda
+def test_round_graph_capture_failure_falls_back_to_eager(bench_cluster):
+    """A goal that reads a device value in its round cannot be captured: the
+    failure on the key's second solve is counted once, the key's rounds run
+    eagerly from then on, and the answers are the eager step's.  The
+    allocator is left as it was."""
+    from cruise_control_tpu_torch.analyzer.goals.rack import RackAwareGoal
+    from cruise_control_tpu_torch.analyzer.solver import GoalSolver
+
+    class HostReadRackAware(RackAwareGoal):
+        def candidate_score(self, gctx, placement, agg):
+            score = super().candidate_score(gctx, placement, agg)
+            score.sum().item()           # a read back to the host
+            return score
+
+    lanes = _lane_contexts(bench_cluster)[:2]
+    want = _eager(lambda: [_solve(GoalSolver(), bench_cluster, l, HostReadRackAware())
+                           for l in lanes])
+    solver = GoalSolver()
+    before = _graph_counts()
+    got = [_solve(solver, bench_cluster, l, HostReadRackAware()) for l in lanes]
+    rounds = sum(info.rounds for _, _, info in got)
+    assert (_graph_counts() - before).tolist() == [0, 0, rounds, 1]
+    for g, w in zip(got, want):
+        _bit_equal(g, w)
+    # The caching allocator left capture mode: it empties its cache (which
+    # it refuses while a capture is underway), and eager solves give back
+    # every byte they take.
+    del got, want
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert not torch.cuda.is_current_stream_capturing()
+
+    def allocated_after_solve():
+        _solve(solver, bench_cluster, lanes[1], HostReadRackAware())
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    base = allocated_after_solve()
+    assert [allocated_after_solve() for _ in range(3)] == [base] * 3
+    torch.cuda.empty_cache()
+    # The card still takes captures of other keys.
+    before = _graph_counts()
+    (_, _, first), (_, _, second) = (_solve(solver, bench_cluster, l) for l in lanes)
+    assert (_graph_counts() - before).tolist() == [1, second.rounds - 1, first.rounds, 0]
+
+
+def _two_rounds(solver, goal, lctx, pl):
+    """How rounds 0 and 1 of one solve of ``goal`` from ``pl`` ran, and the
+    placement they left (cloned out of any static buffers)."""
+    from cruise_control_tpu_torch.analyzer.context import compute_aggregates
+    from cruise_control_tpu_torch.analyzer.solver import _Carry
+
+    agg = compute_aggregates(lctx, pl)
+    c = solver._width(goal, pl.broker.shape[0])
+    zero = torch.zeros((), dtype=torch.int64, device=pl.broker.device)
+    carry = _Carry(placement=pl, agg=agg, moves=zero, stall=zero, best_work=zero,
+                   best_metric=goal.stats_metric(lctx, pl, agg), cond=zero.repeat(4))
+    rs = solver._start_rounds(goal, [], c, solver._phases_runner(goal, (), c), lctx, carry, None)
+    try:
+        return [rs.run(0), rs.run(1)], rs.placement()
+    finally:
+        rs.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["RackAwareGoal", "ReplicaCapacityGoal", "DiskCapacityGoal",
+                                  "NetworkInboundCapacityGoal", "NetworkOutboundCapacityGoal",
+                                  "CpuCapacityGoal", "ReplicaDistributionGoal",
+                                  "PotentialNwOutGoal", "DiskUsageDistributionGoal",
+                                  "NetworkInboundUsageDistributionGoal",
+                                  "NetworkOutboundUsageDistributionGoal",
+                                  "CpuUsageDistributionGoal", "TopicReplicaDistributionGoal",
+                                  "LeaderReplicaDistributionGoal",
+                                  "LeaderBytesInDistributionGoal",
+                                  "KafkaAssignerEvenRackAwareGoal",
+                                  "KafkaAssignerDiskUsageDistributionGoal"])
+def test_round_graph_every_goal_captures_and_replays_as_eager(bench_cluster, name):
+    """Every goal with rounds is capture-safe: its key's second solve
+    captures round 0 and replays round 1, no capture fails, and the two
+    rounds keep the placement two eager rounds keep."""
+    from cruise_control_tpu_torch.analyzer.goals.registry import goal_by_name
+    from cruise_control_tpu_torch.analyzer.solver import GoalSolver
+
+    lctx = _lane_contexts(bench_cluster)[0]
+    pl = bench_cluster.healthy
+    solver = GoalSolver()
+    before = _graph_counts()
+    first, _ = _two_rounds(solver, goal_by_name(name), lctx, pl)
+    how, got = _two_rounds(solver, goal_by_name(name), lctx, pl)
+    assert (first, how) == (["eager:first"] * 2, ["capture", "replay"])
+    assert (_graph_counts() - before).tolist() == [1, 1, 2, 0]
+    _, want = _eager(lambda: _two_rounds(GoalSolver(), goal_by_name(name), lctx, pl))
+    for field in ("broker", "disk", "is_leader"):
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+
+
+@pytest.mark.cuda
+def test_round_graph_direct_goal_runs_eagerly_without_a_capture(bench_cluster):
+    """A goal solved by one transform recomputes the aggregates in its round,
+    which the aggregate kernel refuses under a capture: its rounds run
+    eagerly from the start (``eager:direct``), with no capture tried and
+    none counted as failed."""
+    from cruise_control_tpu_torch.analyzer.goals.leadership import PreferredLeaderElectionGoal
+    from cruise_control_tpu_torch.analyzer.solver import GoalSolver
+
+    lctx = _lane_contexts(bench_cluster)[0]
+    solver = GoalSolver()
+    before = _graph_counts()
+    for _ in range(2):
+        how, _ = _two_rounds(solver, PreferredLeaderElectionGoal(), lctx, bench_cluster.healthy)
+        assert how == ["eager:direct"] * 2
+    assert (_graph_counts() - before).tolist() == [0, 0, 4, 0]
+    assert not solver._graphs

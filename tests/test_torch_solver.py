@@ -222,3 +222,89 @@ def test_one_round_keeps_same_moves(pair, other, name, priors, fixture):
     np.testing.assert_array_equal(tpl.is_leader.numpy(), np.asarray(jpl.is_leader))
     assert int(tviol) == int(jviol)
     jax.clear_caches()
+
+
+# ------------------------------------------------------ the round as one step
+#
+# A round is one step on buffers it writes back into, with the round index
+# a device scalar; on the card it is captured as a CUDA graph, and on the CPU
+# it runs eagerly (tests/test_torch_cuda.py holds the graph against it).
+
+ROUND_GRAPH = ("Solver.round-graph.captures", "Solver.round-graph.replays",
+               "Solver.round-graph.eager-rounds", "Solver.round-graph.capture-failures")
+
+
+def _graph_counts():
+    from cruise_control_tpu_torch.common.metrics import registry
+    return [registry().counter(n).count for n in ROUND_GRAPH]
+
+
+@pytest.mark.parametrize("b", [1.0, 0.3, 7, -2.5])
+def test_hash01_of_a_host_number_equals_its_tensor_form(b):
+    """A host number is folded in without a copy to the device, and draws
+    the very floats its device tensor gives."""
+    from cruise_control_tpu_torch.analyzer.context import hash01
+    a = torch.arange(-5000, 60000, 7)
+    want = hash01(a, torch.tensor(b, dtype=torch.float32))
+    assert torch.equal(hash01(a, b), want)
+
+
+def test_round_step_with_a_device_round_index_keeps_the_same_moves(pair):
+    """The step's first round, its round index a tensor, keeps what
+    :meth:`GoalSolver.run_round` keeps at round 0 (a Python int), and the
+    solve leaves the caller's placement and aggregates as they were."""
+    _, (tg, tp) = pair
+    goal, priors = goal_by_name("ReplicaDistributionGoal"), [goal_by_name(n) for n in HARD]
+    solver = tsolver.GoalSolver()
+    want, applied, *_ = solver.run_round(goal, priors, tg, tp, 0)
+    agg = compute_aggregates(tg, tp)
+    kept = [t.clone() for t in (tp.broker, tp.disk, tp.is_leader, agg.broker_load)]
+    c = solver._width(goal, tp.broker.shape[0])
+    runner = solver._phases_runner(goal, tuple(priors), c)
+    zero = torch.zeros((), dtype=torch.int64)
+    carry = tsolver._Carry(placement=tp, agg=agg, moves=zero, stall=zero, best_work=zero,
+                           best_metric=goal.stats_metric(tg, tp, agg), cond=torch.zeros(4, dtype=torch.int64))
+    rs = solver._start_rounds(goal, priors, c, runner, tg, carry, None)
+    assert rs.run(0) == "eager:cpu"
+    assert int(applied) > 0 and int(rs.carry.moves) == int(applied)
+    assert int(rs.carry.cond[2]) == int(applied)
+    for name in ("broker", "disk", "is_leader"):
+        assert torch.equal(getattr(rs.placement(), name), getattr(want, name)), name
+    for before, now in zip(kept, (tp.broker, tp.disk, tp.is_leader, agg.broker_load)):
+        assert torch.equal(before, now)
+    rs.close()
+
+
+def test_cpu_rounds_run_eagerly_and_are_counted(pair):
+    """On the CPU every ``solve.round`` reads ``graph`` = ``eager:cpu``,
+    and ``Solver.round-graph.eager-rounds`` counts each of them."""
+    from cruise_control_tpu_torch.obsvc.tracer import tracer
+    _, (tg, tp) = pair
+    tr = tracer()
+    was = tr.enabled
+    tr.configure(enabled=True, ring_size=32)
+    tr.reset()
+    before = _graph_counts()
+    try:
+        with tr.span("solve"):
+            _, _, info = tsolver.GoalSolver().optimize_goal(goal_by_name("RackAwareGoal"), [],
+                                                            tg, tp)
+        rounds = [s for s in tr.traces()[0]["children"] if s["name"] == "solve.round"]
+    finally:
+        tr.configure(enabled=was, ring_size=32)
+        tr.reset()
+    assert info.rounds >= 1 and len(rounds) == info.rounds
+    assert [r["attrs"]["graph"] for r in rounds] == ["eager:cpu"] * info.rounds
+    assert [a - b for a, b in zip(_graph_counts(), before)] == [0, 0, info.rounds, 0]
+
+
+def test_priors_aware_ranking_matches_jax(pair):
+    """The priors-aware receiver ranking, its columns taken one by one,
+    against the JAX package's gather."""
+    (jg, jp), (tg, tp) = pair
+    names = ["DiskUsageDistributionGoal", "NetworkInboundUsageDistributionGoal"]
+    goal = "NetworkOutboundUsageDistributionGoal"
+    got = goal_by_name(goal).dst_prune_score_vs(tg, tp, compute_aggregates(tg, tp),
+                                                [goal_by_name(n) for n in names])
+    want = jgoal(goal).dst_prune_score_vs(jg, jp, jaggregates(jg, jp), [jgoal(n) for n in names])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

@@ -119,7 +119,8 @@ def test_batch_tree_names_and_nesting(traced_batch):
         assert names[0] == "solve.enter" and names[-1] == "solve.exit"
         assert set(names[1:-1]) <= {"solve.round"}
         for r, rnd in enumerate(goal["children"][1:-1]):
-            assert rnd["attrs"] == {"round": r}
+            # The CPU runs every round eagerly, and says so.
+            assert rnd["attrs"] == {"round": r, "graph": "eager:cpu"}
             assert _names(rnd)[-1] == "round.stats" and set(_names(rnd)[:-1]) <= PHASES
             assert len(_names(rnd)) >= 2
     # One goal span per real lane and goal.
