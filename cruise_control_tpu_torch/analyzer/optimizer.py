@@ -12,7 +12,8 @@ polish re-solve; ``batch_optimize`` holds ``lanes.setup``, ``lanes.plan``, a
 ``lanes.block`` per planned block (``lanes.group`` on a mesh) with its
 ``lanes.context``, ``solve.relax`` and a ``goal.<Goal>`` per real lane and
 goal, then ``lanes.result``.  Each ``goal.*`` holds the solver's
-``solve.enter``, ``solve.round`` and ``solve.exit``.
+``solve.enter``, ``solve.round`` and ``solve.exit``, and says whether the
+goal is hard, what its solve applied and why its loop ended.
 """
 
 from __future__ import annotations
@@ -83,6 +84,20 @@ def _changed_partitions(part_ids: torch.Tensor, a: Placement, b: Placement) -> s
     changed = ((a.broker[:n] != b.broker[:n]) | (a.is_leader[:n] != b.is_leader[:n])
                | (a.disk[:n] != b.disk[:n]))
     return set(torch.unique(part_ids[changed]).tolist())
+
+
+def _goal_attrs(span, goal: Goal, info: GoalOptimizationInfo) -> None:
+    """A ``goal.<Goal>`` span's attributes: whether the goal is hard, its
+    rounds, the actions it applied (``moves``: all of them; ``swaps`` and
+    ``leader_moves``: those of its swap and leadership phases, a part of
+    ``moves``) and why its loop ended (``end``, one of the solver's
+    ``GOAL_ENDS``)."""
+    span.set("hard", goal.is_hard)
+    span.set("rounds", info.rounds)
+    span.set("moves", info.moves_applied)
+    span.set("swaps", info.swaps_applied)
+    span.set("leader_moves", info.leader_moves_applied)
+    span.set("end", info.end)
 
 
 def _provenance(goal_name: str, info: GoalOptimizationInfo) -> Dict:
@@ -434,8 +449,7 @@ class GoalOptimizer:
                 else:
                     placement, agg, info = self.solver.optimize_goal(
                         goal, priors, gctx, placement, agg, budget=budget)
-                gsp.set("rounds", info.rounds)
-                gsp.set("moves", info.moves_applied)
+                _goal_attrs(gsp, goal, info)
                 if info.relaxed:
                     gsp.set("relaxed", True)
                     gsp.set("relax_ms", round(info.relax_ms, 3))
@@ -526,6 +540,8 @@ class GoalOptimizer:
                     if inf.goal_name == goal.name:
                         inf.rounds += pinfo.rounds
                         inf.moves_applied += pinfo.moves_applied
+                        inf.swaps_applied += pinfo.swaps_applied
+                        inf.leader_moves_applied += pinfo.leader_moves_applied
                         inf.violated_brokers_after = pinfo.violated_brokers_after
                         inf.metric_after = pinfo.metric_after
 
@@ -893,8 +909,7 @@ class GoalOptimizer:
                     with tr.span(f"goal.{goal.name}", lane=s) as gsp:
                         pl, _, info = self.solver.optimize_goal(
                             goal, priors, lctx, placements[s], width=c)
-                        gsp.set("rounds", info.rounds)
-                        gsp.set("moves", info.moves_applied)
+                        _goal_attrs(gsp, goal, info)
                     placements[s] = pl
                     column.append((info.rounds, info.moves_applied,
                                    info.violated_brokers_after))

@@ -113,15 +113,21 @@ GRAPH_CAPTURES_SENSOR = "Solver.round-graph.captures"
 GRAPH_REPLAYS_SENSOR = "Solver.round-graph.replays"
 GRAPH_EAGER_SENSOR = "Solver.round-graph.eager-rounds"
 GRAPH_FAILURES_SENSOR = "Solver.round-graph.capture-failures"
+# Graphs dropped to keep a solver within ROUND_GRAPH_SLOTS.
+GRAPH_EVICTIONS_SENSOR = "Solver.round-graph.evictions"
 ROUND_GRAPH_SENSORS = (GRAPH_CAPTURES_SENSOR, GRAPH_REPLAYS_SENSOR, GRAPH_EAGER_SENSOR,
-                       GRAPH_FAILURES_SENSOR)
+                       GRAPH_FAILURES_SENSOR, GRAPH_EVICTIONS_SENSOR)
+# Why a goal's loop ended (``GoalOptimizationInfo.end``): its work was done,
+# a round applied nothing, the stall cutoff, the round cap, or the budget.
+GOAL_ENDS = ("satisfied", "no_move", "stalled", "round_cap", "budget")
+GOAL_END_SENSORS = tuple(f"Solver.goal-end.{end}" for end in GOAL_ENDS)
 
 
 def round_graph_sensors() -> None:
-    """Materialize the Solver.round-graph.* counters (at 0) so a scrape sees
-    them before the first round."""
+    """Materialize the Solver.round-graph.* and Solver.goal-end.* counters
+    (at 0) so a scrape sees them before the first round."""
     reg = registry()
-    for name in ROUND_GRAPH_SENSORS:
+    for name in ROUND_GRAPH_SENSORS + GOAL_END_SENSORS:
         reg.counter(name)
 
 # Round-level convergence recording (trace.solver.rounds); the column layout
@@ -248,6 +254,12 @@ class GoalOptimizationInfo:
     # Offline (dead-broker) replicas still stranded when the goal's loop
     # exited — consumed by the optimizer's hard-goal evacuation check.
     stranded_after: int = 0
+    # The parts of moves_applied that the swap and leadership phases applied
+    # (a swap counts once).
+    swaps_applied: int = 0
+    leader_moves_applied: int = 0
+    # Why the loop ended: one of GOAL_ENDS (None for a goal never started).
+    end: Optional[str] = None
     metric_before: float = 0.0
     metric_after: float = 0.0
     # Per-round convergence curve, shape (rounds, ROUND_STATS_COLS) —
@@ -921,12 +933,15 @@ def _direct_phase(goal: Goal):
 @dataclass
 class _Carry:
     """What one round hands the next: the placement, the aggregates, the
-    stall and best-work bookkeeping, and the loop condition's four values
-    (violated, stranded, applied, stall), i64[4]."""
+    actions applied so far (all, and the swaps and leadership moves among
+    them), the stall and best-work bookkeeping, and the loop condition's
+    four values (violated, stranded, applied, stall), i64[4]."""
 
     placement: Placement
     agg: Aggregates
     moves: torch.Tensor
+    swaps: torch.Tensor
+    leader_moves: torch.Tensor
     stall: torch.Tensor
     best_work: torch.Tensor
     best_metric: torch.Tensor
@@ -1231,23 +1246,30 @@ class GoalSolver:
 
     def _phases_runner(self, goal: Goal, priors: Tuple[Goal, ...], c: int):
         """One round given the caller's aggregates; returns the updated
-        aggregates so the loop can carry them across rounds."""
+        aggregates so the loop can carry them across rounds, and the
+        actions the round applied: all of them, then those of the swap and
+        of the leadership phase."""
         phases = self._phases(goal, priors, c)
         tr = _tracer()
 
         def run(gctx: GoalContext, placement: Placement, agg: Aggregates, ridx,
                 spans: bool = True):
             span = tr.span if spans else _no_span
-            applied = torch.zeros((), dtype=torch.int64, device=gctx.state.device)
+            applied = swaps = leads = torch.zeros((), dtype=torch.int64,
+                                                  device=gctx.state.device)
             for name, phase in phases:
                 with span(name):
                     placement, agg, n = phase(gctx, placement, agg, ridx)
                     applied = applied + n
+                if name == "phase.swap":
+                    swaps = n
+                elif name == "phase.leadership":
+                    leads = n
             with span("round.stats"):
                 violated = goal.violated_brokers(gctx, placement, agg).sum()
                 stranded = currently_offline(gctx, placement).sum()
                 metric = goal.stats_metric(gctx, placement, agg)
-            return placement, agg, applied, violated, stranded, metric
+            return placement, agg, applied, violated, stranded, metric, swaps, leads
 
         return run
 
@@ -1257,7 +1279,7 @@ class GoalSolver:
         stranded, metric) — the JAX package's ``_round_fn`` body."""
         c = self._width(goal, gctx.state.num_replicas_padded)
         runner = self._phases_runner(goal, tuple(priors), c)
-        placement, _, applied, violated, stranded, metric = runner(
+        placement, _, applied, violated, stranded, metric, *_ = runner(
             gctx, placement, compute_aggregates(gctx, placement), ridx)
         return placement, applied, violated, stranded, metric
 
@@ -1323,8 +1345,8 @@ class GoalSolver:
         ``ROUND_STATS_COLS`` row.  ``ridx`` is the round index, an i64
         device scalar.  It reads nothing back to the host, so a CUDA graph
         can capture it, and it is the same step where none does."""
-        pl, ag, applied, violated, stranded, metric = runner(gctx, carry.placement, carry.agg,
-                                                             ridx, spans)
+        pl, ag, applied, violated, stranded, metric, swaps, leads = runner(
+            gctx, carry.placement, carry.agg, ridx, spans)
         work_now = violated + stranded
         improved = ((work_now < carry.best_work)
                     | (metric < carry.best_metric - 1e-4 * carry.best_metric.abs() - 1e-12))
@@ -1335,7 +1357,8 @@ class GoalSolver:
             curve.index_copy_(0, ridx.reshape(1), torch.stack([x.to(torch.float32) for x in (
                 applied, violated, stranded, metric, resync, stall)])[None])
         _copy_into(carry, _Carry(
-            placement=pl, agg=ag, moves=carry.moves + applied, stall=stall,
+            placement=pl, agg=ag, moves=carry.moves + applied, swaps=carry.swaps + swaps,
+            leader_moves=carry.leader_moves + leads, stall=stall,
             best_work=torch.minimum(carry.best_work, work_now),
             best_metric=torch.minimum(carry.best_metric, metric),
             cond=torch.stack([violated, stranded, applied, stall])))
@@ -1389,6 +1412,7 @@ class GoalSolver:
                         del self._graphs[old]
                         entry.drop()
                         entry.lock.release()
+                        registry().counter(GRAPH_EVICTIONS_SENSOR).inc()
                 return None, "first"
             self._graphs.move_to_end(key)
         if held.failed:
@@ -1401,24 +1425,27 @@ class GoalSolver:
         return held, None
 
     def _go_on(self, gctx: GoalContext, rounds: int, use_stall_cutoff: bool, budget,
-               cond: torch.Tensor) -> Tuple[bool, Optional[str]]:
+               cond: torch.Tensor) -> Tuple[bool, Optional[str], Optional[str]]:
         """The loop condition before round ``rounds``: (run it, the
-        segmented budget's stop reason) from ``cond`` (violated, stranded,
-        applied last round, stall).  Its read of the device values is the
-        one host sync of each round."""
+        segmented budget's stop reason, why the loop ends: one of
+        :data:`GOAL_ENDS`, None while it goes on) from ``cond`` (violated,
+        stranded, applied last round, stall).  Its read of the device values
+        is the one host sync of each round."""
         if rounds >= self.max_rounds:
-            return False, None
+            return False, None, "round_cap"
         cond, = _agree(gctx, cond)
         v, s, a, st = cond.tolist()
-        if not ((v > 0 or s > 0) and (rounds == 0 or a > 0)):
-            return False, None
+        if not (v > 0 or s > 0):
+            return False, None, "satisfied"
+        if not (rounds == 0 or a > 0):
+            return False, None, "no_move"
         if use_stall_cutoff and st >= self.stall_limit:
-            return False, None
+            return False, None, "stalled"
         if (budget is not None and budget.segmented and rounds > 0
                 and rounds % self.segment_rounds == 0):
             stop = budget.stop_reason()
-            return stop is None, stop
-        return True, None
+            return stop is None, stop, None if stop is None else "budget"
+        return True, None, None
 
     def _converge(self, goal: Goal, priors: Sequence[Goal], gctx: GoalContext,
                   placement: Placement, agg: Optional[Aggregates], budget, c: int,
@@ -1450,16 +1477,18 @@ class GoalSolver:
 
             rounds = 0
             zero = torch.zeros((), dtype=torch.int64, device=dev)
-            carry = _Carry(placement=placement, agg=agg, moves=zero, stall=zero,
+            carry = _Carry(placement=placement, agg=agg, moves=zero, swaps=zero,
+                           leader_moves=zero, stall=zero,
                            best_work=violated0 + stranded0, best_metric=metric0,
                            cond=torch.stack([violated0, stranded0, zero + 1, zero]))
             # Round recording: one row a round into a preallocated device
             # buffer, in the ROUND_COL_* order; no sync of its own.
             curve_buf = (torch.zeros((self.max_rounds, ROUND_STATS_COLS), dtype=torch.float32,
                                      device=dev) if _RECORD_ROUNDS else None)
-            go_on = False
+            go_on, end = False, "budget"
             if stop is None:
-                go_on, stop = self._go_on(gctx, rounds, use_stall_cutoff, budget, carry.cond)
+                go_on, stop, end = self._go_on(gctx, rounds, use_stall_cutoff, budget,
+                                               carry.cond)
         segment = 0
         rs: Optional[_Rounds] = None
         try:
@@ -1475,26 +1504,28 @@ class GoalSolver:
                                                         curve_buf)
                             round_span.set("graph", rs.run(rounds))
                             rounds += 1
-                            go_on, stop = self._go_on(gctx, rounds, use_stall_cutoff, budget,
-                                                      rs.carry.cond)
+                            go_on, stop, end = self._go_on(gctx, rounds, use_stall_cutoff,
+                                                           budget, rs.carry.cond)
                     if seg_span is not None:
                         seg_span.set("rounds", rounds)
                 segment += 1
 
             with tr.span("solve.exit"):
-                pl, ag, moves = placement, agg, carry.moves
+                pl, ag, done = placement, agg, carry
                 violated, stranded, metric = violated0, stranded0, metric0
                 if rounds > 0:
                     # The returned residuals come from one fresh recompute:
                     # the in-loop values ride the carried aggregates (exact
                     # up to float scatter-drift between resyncs).
-                    pl, moves = rs.placement(), rs.carry.moves
+                    pl, done = rs.placement(), rs.carry
                     ag = compute_aggregates(gctx, pl)
                     violated = goal.violated_brokers(gctx, pl, ag).sum()
                     stranded = currently_offline(gctx, pl).sum()
                     metric = goal.stats_metric(gctx, pl, ag)
                 vals, = _agree(gctx, torch.stack([x.to(torch.float64) for x in (
-                    moves, violated0, violated, stranded, metric0, metric)]))
+                    done.moves, violated0, violated, stranded, metric0, metric, done.swaps,
+                    done.leader_moves)]))
+                n_vals = vals.shape[0]
                 curve = None
                 if curve_buf is None:
                     vals = vals.tolist()
@@ -1502,8 +1533,14 @@ class GoalSolver:
                     # The goal's one copy of its curve, in the same transfer
                     # as its final numbers.
                     host = torch.cat([vals, curve_buf[:rounds].reshape(-1).to(torch.float64)]).cpu()
-                    curve = host[6:].numpy().astype(np.float32).reshape(rounds, ROUND_STATS_COLS)
-                    vals = host[:6].tolist()
+                    curve = host[n_vals:].numpy().astype(np.float32).reshape(
+                        rounds, ROUND_STATS_COLS)
+                    vals = host[:n_vals].tolist()
+                if end == "round_cap" and vals[2] == 0 and vals[3] == 0:
+                    # The cap is checked before the condition is read: a goal
+                    # whose last round finished its work ended satisfied.
+                    end = "satisfied"
+                registry().counter(f"Solver.goal-end.{end}").inc()
                 return pl, ag, GoalOptimizationInfo(
                     goal_name=goal.name,
                     rounds=rounds,
@@ -1511,6 +1548,9 @@ class GoalSolver:
                     violated_brokers_before=int(vals[1]),
                     violated_brokers_after=int(vals[2]),
                     stranded_after=int(vals[3]),
+                    swaps_applied=int(vals[6]),
+                    leader_moves_applied=int(vals[7]),
+                    end=end,
                     metric_before=vals[4],
                     metric_after=vals[5],
                     round_curve=curve,

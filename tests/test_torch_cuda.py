@@ -735,8 +735,8 @@ def _two_rounds(solver, goal, lctx, pl):
     agg = compute_aggregates(lctx, pl)
     c = solver._width(goal, pl.broker.shape[0])
     zero = torch.zeros((), dtype=torch.int64, device=pl.broker.device)
-    carry = _Carry(placement=pl, agg=agg, moves=zero, stall=zero, best_work=zero,
-                   best_metric=goal.stats_metric(lctx, pl, agg), cond=zero.repeat(4))
+    carry = _Carry(placement=pl, agg=agg, moves=zero, swaps=zero, leader_moves=zero, stall=zero,
+                   best_work=zero, best_metric=goal.stats_metric(lctx, pl, agg), cond=zero.repeat(4))
     rs = solver._start_rounds(goal, [], c, solver._phases_runner(goal, (), c), lctx, carry, None)
     try:
         return [rs.run(0), rs.run(1)], rs.placement()

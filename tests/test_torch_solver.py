@@ -262,8 +262,9 @@ def test_round_step_with_a_device_round_index_keeps_the_same_moves(pair):
     c = solver._width(goal, tp.broker.shape[0])
     runner = solver._phases_runner(goal, tuple(priors), c)
     zero = torch.zeros((), dtype=torch.int64)
-    carry = tsolver._Carry(placement=tp, agg=agg, moves=zero, stall=zero, best_work=zero,
-                           best_metric=goal.stats_metric(tg, tp, agg), cond=torch.zeros(4, dtype=torch.int64))
+    carry = tsolver._Carry(placement=tp, agg=agg, moves=zero, swaps=zero, leader_moves=zero,
+                           stall=zero, best_work=zero, best_metric=goal.stats_metric(tg, tp, agg),
+                           cond=torch.zeros(4, dtype=torch.int64))
     rs = solver._start_rounds(goal, priors, c, runner, tg, carry, None)
     assert rs.run(0) == "eager:cpu"
     assert int(applied) > 0 and int(rs.carry.moves) == int(applied)

@@ -152,6 +152,9 @@ def test_enter_rounds_and_exit_cover_each_goal(traced_batch):
     assert sum(c["wall_ms"] for c in tree["children"]) >= 0.9 * tree["wall_ms"]
 
 
+PORT_GOAL_ATTRS = ("hard", "end", "swaps", "leader_moves")
+
+
 def test_optimize_tree_holds_the_jax_packages_names(cluster, port_tracer):
     goals = ["RackAwareGoal", "ReplicaDistributionGoal"]
     jt = jtracer.tracer()
@@ -176,7 +179,11 @@ def test_optimize_tree_holds_the_jax_packages_names(cluster, port_tracer):
         assert set(names) <= {f"{k}.{g}" for k in ("goal", "polish") for g in goals}
     jattrs = {c["name"]: c["attrs"] for c in jtree["children"]}
     for c in tree["children"]:
-        assert {"bucket", "rounds", "moves"} <= set(c["attrs"]) <= set(jattrs.get(c["name"], ()))
+        # The port's goal spans also say whether the goal is hard, why its
+        # loop ended, and its swaps and leadership moves.
+        own = set(PORT_GOAL_ATTRS) if c["name"].startswith("goal.") else set()
+        assert {"bucket", "rounds", "moves"} | own <= set(c["attrs"]) <= \
+            set(jattrs.get(c["name"], ())) | own
         assert c["attrs"]["bucket"] == jattrs[c["name"]]["bucket"]
         assert _names(c)[0] == "solve.enter" and _names(c)[-1] == "solve.exit"
 
